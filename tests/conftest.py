@@ -8,3 +8,9 @@ _SRC = os.path.join(os.path.dirname(_HERE), "src")
 for _p in (_SRC, _HERE):
     if _p not in sys.path:
         sys.path.insert(0, _p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's Hopper kernels); "
+                   "skips with a reason where none is present")
