@@ -6,16 +6,30 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds every CUDA source of the port, holds each kernel bitwise
-against its plain PyTorch version on the card, drives the main path --
-the paper's CNN power measurement, ``analyze_network("resnet50")`` at
-224 px with the whole design menu, then ``select_network`` -- counting
-the kernel's launches in that run, checks every site's counters against
-the plain version, runs MobileNetV1 at 224 px through the batched
-depthwise form the same way, and times the kernel at the main path's
-shapes. The line before the last lists the kernels as JSON; the last line
-is ``{"ok": true, "device": {...}}``. Without a card, or without the rest
-of the repository beside it, it exits non-zero and prints no result.
+It builds every CUDA source of the port (one ``nvcc`` each, all at
+once) and drives the port's two main paths, each with the kernels'
+launch counts set to 0 just before it and read just after:
+
+* the paper's CNN power measurement, ``analyze_network("resnet50")`` at
+  224 px with the whole design menu, then ``select_network``: every
+  site's counters are held against the plain version, and MobileNetV1 at
+  224 px runs the same way through the batched depthwise form. Kernel:
+  the power-counter pass (K1).
+* per-request power-accounted LM serving: the slot ``ServeEngine`` at
+  the full width of Qwen1.5-0.5B (random bf16 weights from seed 0), 8
+  requests through 4 slots. Kernels: the ZVG-gated decode matmul (K2) in
+  every projection, MLP and lm-head matmul, the decode matmul fused with
+  its counters (K3) in the power accountant, K1 in its prefill
+  accounting. The same requests then run with ``kernel_backend="ref"``
+  (every plain version) and the two runs' tokens and energies are
+  compared.
+
+Before them, each kernel is held against its plain PyTorch version on
+the card (counters bitwise, products within a stated tolerance); after
+them, each is timed at its main path's shapes with CUDA events. The line
+before the last lists the kernels as JSON; the last line is ``{"ok":
+true, "device": {...}}``. Without a card, or without the rest of the
+repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -25,18 +39,45 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32
-#: non-tensor rate, which bounds integer ALU work from above
+#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the float32
+#: non-tensor rate, which bounds integer ALU work from above, and the
+#: dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 KERNEL_SOURCE = "src/repro_torch/csrc/power_counters.cu"
 KERNEL_REPLACES = "src/repro/kernels/power_counters/kernel.py:335"
+ZVG_SOURCE = "src/repro_torch/csrc/zvg_matmul.cu"
+K2_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:96"
+K3_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:179"
+
+#: decode products of the kernels (K2, K3) and of their plain versions
+#: against the float32 product of the same operands, per output dtype:
+#: |out - f32| <= REL * |f32| + ACC * (|x| @ |w|). ACC covers float32 sums
+#: taken in another order (below 1e-7 of |x| @ |w| at the decode shapes
+#: on an H100; the worst case is K * 2**-24), REL the bfloat16 output's
+#: rounding (half a unit in the last place, 2**-9, doubled for room);
+#: results below the smallest normal float32 (2**-126) count as zero.
+PRODUCT_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-5)}
+#: a greedy token of the kernel run may differ from the plain run's only
+#: where the plain run's top two logits lie closer than this: two bf16
+#: units in the last place at the logits' magnitude (|logit| < 64)
+LOGIT_TIE = 0.5
+
+#: the serving main path: Qwen1.5-0.5B at full width
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE_REQUESTS = 8
+SERVE_SLOTS = 4
+SERVE_CACHE = 256
+SERVE_MAX_NEW = 32
+SERVE_STOCHASTIC = (2, 5)     # temperature 0.8, top-k 5; the rest greedy
 
 
 def log(msg: str) -> None:
@@ -236,6 +277,268 @@ def phase_breakdown(net: str, designs) -> dict:
     return out
 
 
+# ------------------------------------------------ decode kernels (K2, K3)
+def decode_operands(M: int, K: int, N: int, dtype, gen: torch.Generator):
+    """Activations with a +0.0 row, a -0.0 row and a subnormal row among
+    normal ones (as many as M allows), and fan-in-scaled weights."""
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    w = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+    specials = (0.0, -0.0, 1e-39)       # 1e-39: float32 subnormal
+    for r, v in zip(range(1, M, 2), specials):
+        x[r] = v
+    if dtype == torch.bfloat16:
+        x, w = x.to(dtype), w.to(dtype)
+        if M > 5:
+            x[5] = 2.0 ** -133      # the smallest bfloat16 subnormal
+    return x, w
+
+
+def check_product(got: torch.Tensor, plain: torch.Tensor, x, w,
+                  ctx: str) -> float:
+    """Gated rows (all +0.0 words) bit-equal to the plain version's;
+    every row within PRODUCT_TOL of the float32 product. Returns the
+    largest |kernel - plain|."""
+    from repro_torch.kernels.zvg_matmul.ref import row_is_live
+
+    gated = ~row_is_live(x)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got[gated].view(bits), plain[gated].view(bits)):
+        raise AssertionError(f"{ctx}: gated rows differ from the plain "
+                             f"version's")
+    f32 = x.float() @ w.float()
+    rel, acc = PRODUCT_TOL[got.dtype]
+    # results below the smallest normal float32 may be flushed to zero
+    bound = (rel * f32.abs() + acc * (x.float().abs() @ w.float().abs())
+             + 2.0 ** -126)
+    for name, out in (("kernel", got), ("plain version", plain)):
+        excess = ((out.float() - f32).abs() - bound).max()
+        if excess > 0:
+            raise AssertionError(f"{ctx}: the {name} is {float(excess)!r} "
+                                 f"outside the stated tolerance")
+    return float((got.float() - plain.float()).abs().max())
+
+
+def phase_decode_kernel_cases() -> tuple[float, float]:
+    """K2 and K3 against their plain versions on the card. Returns the
+    largest |kernel - plain| of each."""
+    from repro_torch.core import bic
+    from repro_torch.kernels.power_counters import CounterSpec
+    from repro_torch.kernels.zvg_matmul import kernel, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err2 = 0.0
+    shapes = [(4, 1024, 1024), (4, 1024, 2816), (4, 2816, 1024),
+              (4, 1024, 151936)]
+    shapes += [(m, k, n) for m in (1, 3, 7) for k in (1, 63)
+               for n in (1, 129)]
+    n2 = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, K, N in shapes:
+            x, w = decode_operands(M, K, N, dtype, gen)
+            got = kernel.gated_row_matmul_cuda(x, w)
+            plain = ref.gated_row_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            err2 = max(err2, check_product(got, plain, x, w,
+                                           f"K2 {dtype} {M}x{K}x{N}"))
+            n2 += 1
+    log(f"gated_row_matmul vs plain on the card: {n2} cases, gated rows "
+        f"bit-equal, products within tolerance (max |kernel - plain| "
+        f"{err2!r})")
+
+    menu = CounterSpec(zvg=True), CounterSpec(
+        bic_variants=(bic.MANTISSA_ONLY,))
+    full = CounterSpec(bic_variants=tuple(bic.NAMED_SEGMENTS.values()),
+                       zvg=True, hist=True)
+    cases = [(4, 1024, 256, torch.bfloat16, torch.float32, *menu, 16, 16),
+             (4, 1024, 256, torch.bfloat16, torch.bfloat16, full, full, 16,
+              16),
+             (1, 1, 1, torch.float32, torch.float32, *menu, 16, 16),
+             (3, 63, 129, torch.float32, torch.bfloat16, full, *menu[1:],
+              5, 32),
+             (7, 100, 7, torch.bfloat16, torch.float32, *menu, 40, 3),
+             (5, 257, 300, torch.float32, torch.float32, full, full, 16,
+              16)]
+    err3 = 0.0
+    for B, K, N, adt, wdt, wspec, nspec, lanes_w, cols in cases:
+        a, _ = decode_operands(B, K, N, adt, gen)
+        _, w = decode_operands(B, K, N, wdt, gen)
+        got = kernel.fused_matmul_counters_cuda(a, w, wspec, nspec,
+                                                lanes_w, cols)
+        want = ref.fused_matmul_counters_ref(a, w, wspec, nspec, lanes_w,
+                                             cols)
+        torch.cuda.synchronize()
+        ctx = f"K3 {adt}x{wdt} {B}x{K}x{N} lanes {lanes_w} cols {cols}"
+        for name, g, p in zip(("west_counts", "west_rowzeros",
+                               "north_counts", "north_rowzeros"),
+                              got[1:], want[1:]):
+            if not torch.equal(g, p):
+                raise AssertionError(f"{ctx}: {name} differ")
+        err3 = max(err3, check_product(got[0], want[0], a, w, ctx))
+    log(f"fused_matmul_counters vs plain on the card: {len(cases)} cases, "
+        f"the four counter outputs bitwise equal, products within "
+        f"tolerance (max |kernel - plain| {err3!r})")
+    return err2, err3
+
+
+# ---------------------------------------------------- serving main path
+def serving_requests(vocab: int):
+    from repro_torch.serve import SamplingParams
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 129, SERVE_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+    sampling = [SamplingParams(temperature=0.8, top_k=5)
+                if i in SERVE_STOCHASTIC else SamplingParams()
+                for i in range(SERVE_REQUESTS)]
+    return prompts, sampling
+
+
+def serve(params, cfg, backend: str, record_top2: bool = False):
+    """Serve the smoke's requests with ``kernel_backend=backend``.
+    Returns ``(engine, {uid: request}, wall seconds, top2)`` where
+    ``top2[step]`` is that decode step's top-two logits per row."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    eng = ServeEngine(params, cfg, ServeConfig(
+        max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE, power_monitor=True,
+        kernel_backend=backend))
+    top2 = {}
+    if record_top2:
+        decode = eng._decode
+
+        def recording(*args):
+            logits = decode(*args)
+            top2[eng.stats["steps"]] = logits.topk(2, dim=-1).values.cpu()
+            return logits
+        eng._decode = recording
+    prompts, sampling = serving_requests(cfg.vocab)
+    for p, sp in zip(prompts, sampling):
+        eng.submit(p, max_new_tokens=SERVE_MAX_NEW, sampling=sp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {r.uid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    return eng, done, time.perf_counter() - t0, top2
+
+
+def check_served(done: dict, cfg) -> None:
+    """What the serving run must give whatever its kernels: every request
+    retired by length with in-vocabulary tokens, finite energies and a
+    plausible saving."""
+    if len(done) != SERVE_REQUESTS:
+        raise AssertionError(f"{len(done)} of {SERVE_REQUESTS} retired")
+    for r in done.values():
+        if (r.finish_reason != "length" or len(r.generated) != SERVE_MAX_NEW
+                or not all(0 <= t < cfg.vocab for t in r.generated)):
+            raise AssertionError(f"request {r.uid}: {r.finish_reason}, "
+                                 f"{len(r.generated)} tokens")
+        vals = [v for comps in r.power.energy.values()
+                for v in comps.values()]
+        if not all(np.isfinite(vals)) or not 0 < r.power.saving_total < 1:
+            raise AssertionError(f"request {r.uid}: implausible power "
+                                 f"report {r.power.summary()}")
+
+
+def phase_serving():
+    """The serving main path with the kernels, then the same requests
+    with every plain version; returns what the timings and the kernels
+    line need."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.models import lm
+
+    cfg = ARCHS[SERVE_ARCH]
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+               kz.fused_matmul_counters_cuda)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    eng, done, wall, _ = serve(params, cfg, "auto")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check_served(done, cfg)
+    steps = eng.stats["decode_steps"]
+    per_step = 7 * cfg.n_layers + 1
+    want = {"fused_counters_cuda": 4 * SERVE_REQUESTS,
+            "gated_row_matmul_cuda": per_step * steps,
+            "fused_matmul_counters_cuda": 2 * steps}
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, expected {want}")
+    log(f"{SERVE_ARCH} serving main path (full width, bf16, {SERVE_SLOTS} "
+        f"slots, cache {SERVE_CACHE}, {SERVE_REQUESTS} requests x "
+        f"{SERVE_MAX_NEW} tokens): {steps} decode steps, {eng.stats['tokens']}"
+        f" tokens in {wall:.3f} s ({eng.stats['tokens'] / wall:.1f} tok/s "
+        f"incl. prefill and accounting); launches: gated_row_matmul "
+        f"{launches['gated_row_matmul_cuda']} ({per_step} per decode step), "
+        f"fused_matmul_counters {launches['fused_matmul_counters_cuda']} "
+        f"(2 per sampled step), power_counters "
+        f"{launches['fused_counters_cuda']} (prefill accounting)")
+    agg = eng.trace_report().summary()
+    log(f"serve-wide power: total saving {agg['total_saving']!r}, "
+        f"streaming saving {agg['streaming_saving']!r}, mean zero fraction "
+        f"{agg['mean_zero_fraction']!r}")
+
+    for fn in counted:
+        fn.launches = 0
+    ref_eng, ref_done, ref_wall, top2 = serve(params, cfg, "ref",
+                                              record_top2=True)
+    if any(fn.launches for fn in counted):
+        raise AssertionError("the plain run launched a kernel")
+    check_served(ref_done, cfg)
+    log(f"the same requests with kernel_backend='ref' (every plain "
+        f"version): {ref_wall:.3f} s")
+    equal = compare_runs(done, ref_done, top2)
+    if equal == len(done):
+        rep, ref_rep = eng.trace_report(), ref_eng.trace_report()
+        for site, ref_site in zip(rep.sites, ref_rep.sites):
+            for d, comps in ref_site.designs.items():
+                for c, v in comps.items():
+                    assert_close(site.designs[d][c], v,
+                                 f"trace_report {site.name} {d}/{c}")
+        log("trace_report() aggregates equal the plain run's (rtol 1e-6)")
+    return cfg, eng, launches
+
+
+def assert_close(got: float, want: float, ctx: str) -> None:
+    if not abs(got - want) <= 1e-6 * abs(want):
+        raise AssertionError(f"{ctx}: {got!r} vs {want!r} beyond rtol 1e-6")
+
+
+def compare_runs(done: dict, ref_done: dict, top2: dict) -> int:
+    """Greedy tokens equal across the two runs, or a tie in the plain
+    run's logits where they part; energies of every request with equal
+    tokens within rtol 1e-6. Returns how many requests had equal tokens."""
+    equal = 0
+    for uid, r in done.items():
+        p = ref_done[uid]
+        if r.generated == p.generated:
+            equal += 1
+            for d, comps in p.power.energy.items():
+                for c, v in comps.items():
+                    assert_close(r.power.energy[d][c], v,
+                                 f"request {uid} energy {d}/{c}")
+            continue
+        if uid in SERVE_STOCHASTIC:
+            log(f"request {uid} (sampled): tokens part from the plain "
+                f"run's; not compared")
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r.generated, p.generated))
+                 if a != b)
+        step = p.start_step + j - 1       # token j >= 1 is decode's
+        v = top2[step][p.slot]
+        margin = float(v[0] - v[1])
+        if j == 0 or not margin < LOGIT_TIE:
+            raise AssertionError(
+                f"greedy request {uid} parts from the plain run at token "
+                f"{j}, top-2 logit margin {margin!r}")
+        log(f"greedy request {uid}: a tie -- the tokens part at token {j} "
+            f"where the plain run's top two logits are {margin!r} apart "
+            f"(< {LOGIT_TIE})")
+    log(f"{equal} of {len(done)} requests' tokens equal the plain run's; "
+        f"their per-request energies agree within rtol 1e-6")
+    return equal
+
 # ---------------------------------------------------------------- timing
 def time_ms(fn, reps: int) -> float:
     fn()
@@ -248,6 +551,45 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cycle(fns, reps: int) -> float:
+    """Mean ms per call of ``fns`` run in turn ``reps`` times (CUDA
+    events). Cycling through a main path's distinct weights keeps them
+    out of the 50 MB L2 cache, as one decode step finds them."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for fn in fns:
+            fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
+
+
+def device_ms(fns) -> float:
+    """Mean device time per call of ``fns`` run once each: the durations
+    of the kernels they launch, from ``torch.profiler`` (CUPTI). Unlike
+    :func:`time_cycle` it leaves out the gaps where the card waits for
+    the host, which set the time of a stream of small launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    total = sum(evt.time_range.elapsed_us() for evt in prof.events()
+                if evt.device_type == torch.autograd.DeviceType.CUDA)
+    if not total:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / len(fns)
 
 
 def launch_cost(x: torch.Tensor, spec) -> tuple[float, float]:
@@ -288,6 +630,192 @@ def phase_timing(sites) -> dict:
     return tot
 
 
+def phase_serving_timing(cfg, eng) -> dict:
+    """K2 and K3 at the serving main path's shapes and operands, beside
+    their plain versions, the one PyTorch call that computes K2's
+    function (``torch.matmul``) and their bounds: device time from the
+    profiler (:func:`device_ms`) and, for the kernels, CUDA events over
+    many launches (:func:`time_cycle`); then the warm decode step on the
+    host clock, with each backend."""
+    from repro_torch.kernels.zvg_matmul import kernel, ref
+    from repro_torch.models import lm
+    from repro_torch.serve.power import _decode_menu, _subsample_decode
+
+    W = eng.weights
+    M = SERVE_SLOTS
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    groups = {
+        "wq wk wv wo": [l["mixer"][n] for l in W["layers"]
+                        for n in ("wq", "wk", "wv", "wo")],
+        "ffn up gate": [l["ffn"][n] for l in W["layers"]
+                        for n in ("up", "gate")],
+        "ffn down": [l["ffn"]["down"] for l in W["layers"]],
+        "lm head": [W["head"]],
+    }
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "events_ms": 0.0,
+          "bytes_ms": 0.0, "ops_ms": 0.0, "launches": 0, "shapes": []}
+    with torch.no_grad():
+        for name, ws in groups.items():
+            K, N = ws[0].shape
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            kern = [lambda w=w: kernel.gated_row_matmul_cuda(x, w)
+                    for w in ws]
+            plain = [lambda w=w: ref.gated_row_matmul_ref(x, w) for w in ws]
+            lib = [lambda w=w: torch.matmul(x, w) for w in ws]
+            t = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+                 "library_ms": device_ms(lib),
+                 "events_ms": time_cycle(kern, 5 if len(ws) > 1 else 20),
+                 "bytes_ms": 2 * (M * K + K * N + M * N)
+                 / HBM_BYTES_PER_S * 1e3,
+                 "ops_ms": 2 * M * K * N / BF16_OPS_PER_S * 1e3}
+            n = len(ws)
+            for key, v in t.items():
+                k2[key] += n * v
+            k2["launches"] += n
+            bound_ms = max(t["bytes_ms"], t["ops_ms"])
+            k2["shapes"].append({"weights": name, "M": M, "K": K, "N": N,
+                                 "per_step": n, "ms": t["ms"],
+                                 "plain_ms": t["plain_ms"],
+                                 "library_ms": t["library_ms"],
+                                 "events_ms": t["events_ms"],
+                                 "bound_ms": bound_ms})
+            log(f"gated_row_matmul {M}x{K}x{N} ({name}, {n} per decode "
+                f"step), device ms per launch: kernel {t['ms']:.4f}, plain "
+                f"{t['plain_ms']:.4f}, torch.matmul {t['library_ms']:.4f}, "
+                f"bound {bound_ms:.5f}; kernel by CUDA events "
+                f"{t['events_ms']:.4f}")
+        log(f"gated_row_matmul per decode step ({k2['launches']} launches),"
+            f" device ms: kernel {k2['ms']:.4f}, plain {k2['plain_ms']:.4f},"
+            f" torch.matmul {k2['library_ms']:.4f}, bound "
+            f"{max(k2['bytes_ms'], k2['ops_ms']):.4f}; kernel by CUDA "
+            f"events {k2['events_ms']:.4f}")
+
+        # K3 on the accountant's operands: the embedded decode inputs and
+        # the monitored weights, sub-sampled as record_decode does
+        mcfg = eng.accountant.mcfg
+        geom, _, wspec, nspec = _decode_menu(mcfg)
+        tokens = torch.randint(0, cfg.vocab, (M, 1), generator=gen,
+                               device="cuda")
+        x = eng._embed(eng._embed_bf16, tokens)[:, 0]
+        ops3 = [_subsample_decode(x, w, mcfg) for _, w in eng._power_weights]
+        args = [(a, w, wspec, nspec, geom.rows, geom.cols) for a, w in ops3]
+        kern3 = [lambda a=a: kernel.fused_matmul_counters_cuda(*a)
+                 for a in args]
+        ms3 = device_ms(kern3)
+        events3 = time_cycle(kern3, 20)
+        plain3 = device_ms([lambda a=a: ref.fused_matmul_counters_ref(*a)
+                            for a in args])
+        a, w = ops3[0]
+        B, K = a.shape
+        N = w.shape[1]
+        Np = -(-N // geom.cols) * geom.cols
+        nbytes = (a.element_size() * B * K + w.element_size() * K * N
+                  + 4 * (B * N + B * wspec.n_rows * geom.rows + B * K
+                         + nspec.n_rows * Np + K))
+        ops = (2 * B * K * N + B * K * geom.rows * wspec.n_rows
+               + K * Np * nspec.n_rows)
+        k3 = {"ms": ms3, "plain_ms": plain3, "events_ms": events3,
+              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "ops_ms": ops / ALU_OPS_PER_S * 1e3,
+              "shape": {"B": B, "K": K, "N": N, "lanes_w": geom.rows,
+                        "lanes_n": Np, "a": str(a.dtype), "w": str(w.dtype)}}
+        log(f"fused_matmul_counters {B}x{K}x{N} ({a.dtype} x {w.dtype}), "
+            f"device ms per launch: kernel {ms3:.4f}, plain {plain3:.4f}, "
+            f"bound {max(k3['bytes_ms'], k3['ops_ms']):.5f}; kernel by "
+            f"CUDA events {events3:.4f}")
+
+        # the accountant's whole sampled-step work, host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            xe = eng._embed(eng._embed_bf16, tokens)[:, 0]
+            for site, w in eng._power_weights:
+                eng.accountant.record_decode([], xe, w, site)
+        torch.cuda.synchronize()
+        acct_ms = (time.perf_counter() - t0) / 10 * 1e3
+
+        # the warm decode step (the model alone), host clock
+        states = lm.make_decode_state(cfg, M, SERVE_CACHE, torch.bfloat16,
+                                      "cuda")
+        positions = torch.full((M, 1), SERVE_CACHE // 2, device="cuda")
+        step_ms = {}
+        for backend in ("auto", "ref"):
+            decode = lm.make_decode_step(cfg, backend)
+            decode(W, states, tokens, positions)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                decode(W, states, tokens, positions)
+            torch.cuda.synchronize()
+            step_ms[backend] = (time.perf_counter() - t0) / 10 * 1e3
+    out = {"k2": k2, "k3": k3, "decode_step_ms": step_ms,
+           "accounting_ms": acct_ms,
+           "tokens_per_s": M / step_ms["auto"] * 1e3,
+           "k2_share": k2["ms"] / step_ms["auto"]}
+    log(f"warm decode step ({M} rows, model only): {step_ms['auto']:.3f} ms "
+        f"with the kernels ({out['tokens_per_s']:.1f} tok/s, "
+        f"gated_row_matmul {out['k2_share'] * 100:.1f}% of it), "
+        f"{step_ms['ref']:.3f} ms with the plain versions; the power "
+        f"accountant's sampled-step work (embedding + 2 x record_decode): "
+        f"{acct_ms:.3f} ms")
+    return out
+
+
+def phase_decode_profile(cfg, eng) -> dict:
+    """One warm decode step and one accountant step under
+    ``torch.profiler``: each kernel's own device time by name, and the
+    device's busy share of the profiled window (host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    M = SERVE_SLOTS
+    W = eng.weights
+    states = lm.make_decode_state(cfg, M, SERVE_CACHE, torch.bfloat16,
+                                  "cuda")
+    tokens = torch.zeros((M, 1), dtype=torch.long, device="cuda")
+    positions = torch.full((M, 1), SERVE_CACHE // 2, device="cuda")
+    decode = lm.make_decode_step(cfg, "auto")
+    out = {}
+    with torch.no_grad():
+        for name, work in (
+                ("decode step", lambda: decode(W, states, tokens,
+                                               positions)),
+                ("accountant step", lambda: [
+                    eng.accountant.record_decode(
+                        [], eng._embed(eng._embed_bf16, tokens)[:, 0], w,
+                        site) for site, w in eng._power_weights])):
+            work()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                work()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            kernels: dict[str, list] = {}
+            for evt in prof.events():
+                if evt.device_type == torch.autograd.DeviceType.CUDA:
+                    kernels.setdefault(evt.name, []).append(
+                        evt.time_range.elapsed_us())
+            busy = sum(sum(v) for v in kernels.values())
+            if not kernels:
+                log(f"{name}: the profiler saw no device events; device "
+                    f"time by kernel not measured")
+                continue
+            top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:6]
+            out[name] = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+                         "kernels": {k[:60]: {"launches": len(v),
+                                              "ms": sum(v) / 1e3}
+                                     for k, v in top}}
+            log(f"{name} profiled: wall {wall_us / 1e3:.3f} ms, device busy "
+                f"{busy / 1e3:.3f} ms ({busy / wall_us * 100:.1f}%); "
+                + "; ".join(f"{k[:48]} x{len(v)} {sum(v) / 1e3:.4f} ms"
+                            for k, v in top))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -312,6 +840,7 @@ def main() -> int:
         log(f"ptxas {name}: " + " | ".join(ptxas[:8]))
 
     err = phase_kernel_cases()
+    err2, err3 = phase_decode_kernel_cases()
     designs = tuple(D.named_designs().values())
     layers, launches, _ = run_main_path("resnet50", designs, 54)
     sites, e = check_sites("resnet50", layers, designs)
@@ -319,6 +848,7 @@ def main() -> int:
     mlayers, mlaunches, _ = run_main_path("mobilenet", designs, 28)
     _, e = check_sites("mobilenet", mlayers, designs)
     err = max(err, e)
+    cfg, eng, serve_launches = phase_serving()
 
     phase_breakdown("resnet50", designs)
     tot = phase_timing(sites)
@@ -326,6 +856,15 @@ def main() -> int:
     log(f"power_counters over the ResNet50 main path's {launches} launch "
         f"shapes: kernel {tot['ms']:.3f} ms, plain version "
         f"{tot['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms")
+    st = phase_serving_timing(cfg, eng)
+    k2, k3 = st["k2"], st["k3"]
+    profiled = phase_decode_profile(cfg, eng)
+
+    def bound(t):
+        return {"bound_ms": max(t["bytes_ms"], t["ops_ms"]),
+                "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                             else "operations")}
+
     log(json.dumps({"kernels": [{
         "name": "power_counters",
         "route": "cuda",
@@ -333,15 +872,49 @@ def main() -> int:
         "replaces": KERNEL_REPLACES,
         "launches": launches,
         "launches_mobilenet": mlaunches,
+        "launches_serving": serve_launches["fused_counters_cuda"],
         "max_abs_err": err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
-                     else "operations"),
+        **bound(tot),
         "library_ms": None,
         "ms_over": "sum over the ResNet50 main path's launch shapes",
         "shapes": tot["shapes"],
+    }, {
+        "name": "gated_row_matmul",
+        "route": "cuda",
+        "source": ZVG_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": serve_launches["gated_row_matmul_cuda"],
+        "max_abs_err": err2,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        **bound(k2),
+        "library_ms": k2["library_ms"],
+        "events_ms": k2["events_ms"],
+        "ms_over": f"one decode step's {k2['launches']} launches, device "
+                   f"time (profiler); events_ms by CUDA events",
+        "shapes": k2["shapes"],
+        "decode_step_ms": st["decode_step_ms"],
+        "share_of_decode_step": st["k2_share"],
+        "profiled": profiled.get("decode step"),
+    }, {
+        "name": "fused_matmul_counters",
+        "route": "cuda",
+        "source": ZVG_SOURCE,
+        "replaces": K3_REPLACES,
+        "launches": serve_launches["fused_matmul_counters_cuda"],
+        "max_abs_err": err3,
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        **bound(k3),
+        "library_ms": None,
+        "events_ms": k3["events_ms"],
+        "ms_over": "one launch, device time (profiler); events_ms by CUDA "
+                   "events",
+        "shape": k3["shape"],
+        "accounting_step_ms": st["accounting_ms"],
+        "profiled": profiled.get("accountant step"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,164 @@
+"""PowerMonitor: model the streaming power of the matmuls a system runs.
+
+Given the (activations, weights) actually flowing through a layer, the
+monitor streams them through the systolic-array model and prices every
+:class:`repro_torch.design.DesignPoint` of its config. The serving
+engine's :class:`repro_torch.serve.power.PowerAccountant` and
+:class:`repro_torch.trace.capture.TraceCapture` are sums of
+:func:`stream_counters` outputs: flat scalar counters keyed
+``e/<design>/<component>``, ``h/<design>``, ``v/<design>``, plus
+``cycles`` and the non-additive ``zero_fraction``. Summing them over
+calls, scaling by sampled fractions, and only then taking ratios is the
+paper's energy-before-ratios aggregation done incrementally.
+
+Large operands are sub-sampled along each axis (:func:`_subsample`);
+switching activity is a per-stream mean, so uniform sampling is
+unbiased, and :func:`sampled_fraction_scale` scales counters back to
+the full extent.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import bic, power, systolic
+
+
+@dataclasses.dataclass(frozen=True)
+class MonitorConfig:
+    """What to stream, at which sampling caps, priced for which designs.
+
+    ``designs`` is the explicit design list; empty (the default) means
+    the paper pair built from ``geometry`` / ``bic_segments`` / ``zvg``
+    and ``energy``. ``backend`` picks the counter pass (see
+    :mod:`repro_torch.kernels.power_counters.ops`).
+    """
+    geometry: systolic.SAGeometry = systolic.PAPER_SA
+    bic_segments: tuple[int, ...] = bic.MANTISSA_ONLY
+    zvg: bool = True
+    energy: power.EnergyModel = power.DEFAULT_ENERGY
+    designs: tuple = ()
+    backend: str | None = None
+    max_rows: int = 256     # sample cap along M (input streams)
+    max_cols: int = 256     # sample cap along N (weight streams)
+    max_depth: int = 1024   # sample cap along K (stream length)
+
+    @property
+    def design_list(self) -> tuple:
+        """The designs this monitor prices (the paper pair when unset)."""
+        if self.designs:
+            return self.designs
+        from repro_torch.design.point import paper_pair
+        return paper_pair(self.geometry, self.bic_segments, self.zvg,
+                          self.energy)
+
+    @property
+    def design_names(self) -> tuple[str, ...]:
+        return tuple(d.name for d in self.design_list)
+
+    @property
+    def reference_design(self) -> str:
+        """Savings denominator: the first design in the list."""
+        return self.design_list[0].name
+
+    @property
+    def primary_design(self) -> str:
+        """Headline design: the second design (or the only one)."""
+        names = self.design_names
+        return names[1] if len(names) > 1 else names[0]
+
+
+DEFAULT_MONITOR = MonitorConfig()
+
+#: canonical per-design energy components in ``stream_counters`` keys
+COMPONENTS = power.COMPONENTS + ("total",)
+
+
+def subsample_index(n: int, cap: int) -> torch.Tensor:
+    """The ``cap`` indices of an evenly strided sample spanning all of
+    ``0..n-1``: ``floor(i * (n / cap))``, computed in float32 as the JAX
+    package computes it (float64 picks other indices for some ``n``)."""
+    step = torch.tensor(n / cap, dtype=torch.float32)
+    return torch.floor(torch.arange(cap, dtype=torch.float32) * step).long()
+
+
+def _subsample(x: torch.Tensor, cap: int, axis: int) -> torch.Tensor:
+    """``cap`` evenly strided entries of ``x`` along ``axis``, reaching
+    into the last ``n/cap``-sized bucket (so the tail of the axis is
+    represented); ``x`` itself when ``n <= cap``."""
+    n = x.shape[axis]
+    if n <= cap:
+        return x
+    return x.index_select(axis, subsample_index(n, cap).to(x.device))
+
+
+def subsample_operands(acts: torch.Tensor, weights: torch.Tensor,
+                       cfg: MonitorConfig = DEFAULT_MONITOR):
+    """``[..., K]`` activations as ``[M, K]``, and both operands capped at
+    the config's sampling limits."""
+    A = acts.reshape(-1, acts.shape[-1])
+    A = _subsample(_subsample(A, cfg.max_rows, 0), cfg.max_depth, 1)
+    W = _subsample(_subsample(weights, cfg.max_depth, 0), cfg.max_cols, 1)
+    return A, W
+
+
+def stream_counters(A: torch.Tensor, W: torch.Tensor,
+                    cfg: MonitorConfig = DEFAULT_MONITOR) -> dict:
+    """Flat scalar counters (float32 0-d tensors) for one pre-shaped
+    ``[M, K] x [K, N]`` stream: per design ``e/<d>/<component>`` energies
+    (fJ) and ``h/<d>`` / ``v/<d>`` pipeline toggles, plus ``cycles`` and
+    ``zero_fraction``."""
+    from repro_torch.design.evaluate import evaluate_operands
+    ev = evaluate_operands(A, W, cfg.design_list, cfg.backend)
+    return flatten_evaluated(ev, cfg.design_names)
+
+
+def flatten_evaluated(ev: dict, design_names: tuple[str, ...]) -> dict:
+    """An evaluation ``{design: {"energy", "h", "v", ...}}`` as the flat
+    counter dict of :func:`stream_counters` (shared with the serving
+    engine's decode assembler)."""
+    flat = {}
+    for name, r in ev.items():
+        for comp, v in r["energy"].items():
+            flat[f"e/{name}/{comp}"] = v
+        flat[f"h/{name}"] = r["h"]
+        flat[f"v/{name}"] = r["v"]
+    first = ev[design_names[0]]
+    flat["cycles"] = first["cycles"]
+    flat["zero_fraction"] = first["zero_fraction"]
+    return flat
+
+
+def sampled_fraction_scale(m: int, k: int, n: int,
+                           cfg: MonitorConfig = DEFAULT_MONITOR,
+                           sampled_m: int | None = None) -> float:
+    """Factor that scales counters of sub-sampled ``[ms, ks] x [ks, ns]``
+    operands back to the full ``[m, k] x [k, n]`` extent (every counter
+    grows about linearly in M, K and N, so ratios stay exact).
+    ``sampled_m`` overrides the default ``min(m, max_rows)``."""
+    ms = min(m, cfg.max_rows) if sampled_m is None else sampled_m
+    ks = min(k, cfg.max_depth)
+    ns = min(n, cfg.max_cols)
+    return (m / ms) * (k / ks) * (n / ns)
+
+
+def counters_to_energy(counters: dict, scale: float = 1.0) -> dict:
+    """Accumulated flat counters as ``{design: {component: fJ}}``."""
+    out: dict[str, dict[str, float]] = {}
+    for key, v in counters.items():
+        if key.startswith("e/"):
+            _, name, comp = key.split("/", 2)
+            out.setdefault(name, {})[comp] = float(v) * scale
+    return out
+
+
+def counters_toggles(counters: dict, scale: float = 1.0) -> dict:
+    """Per-design ``{"h": ..., "v": ...}`` pipeline toggles from
+    accumulated flat counters."""
+    out: dict[str, dict[str, float]] = {}
+    for key, v in counters.items():
+        if key.startswith(("h/", "v/")):
+            axis, name = key.split("/", 1)
+            out.setdefault(name, {})[axis] = float(v) * scale
+    return out

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
-repository root (``build/`` is git-ignored); the hash is the source's, so
-an edited source rebuilds and an unchanged one is reused. Several
+repository root (``build/`` is git-ignored); the hash covers the source,
+every shared header of ``csrc/`` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. Several
 sources compile in parallel, one ``nvcc`` each. Nothing here runs at
 import time: the CPU tests import every module on machines without
 ``nvcc``.
@@ -23,7 +24,7 @@ CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE.parents[1] / "build" / "kernels"
 
 #: every CUDA source of the port, by library name
-SOURCES = ("power_counters",)
+SOURCES = ("power_counters", "zvg_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,8 +43,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 

@@ -31,6 +31,22 @@ def _function():
     return fn
 
 
+def spec_args(spec: CounterSpec) -> tuple:
+    """A spec as the kernels' C interfaces take it: ``(n_segs, seg_masks,
+    n_variants, variant_segs, zvg, hist)``, each variant a bitmask of
+    indices into the unique segments."""
+    segs = spec.unique_segments
+    if len(spec.bic_variants) > 64:
+        raise ValueError(f"{len(spec.bic_variants)} BIC variants exceed "
+                         f"the kernel's 64")
+    variant_segs = [sum(1 << segs.index(m) for m in v)
+                    for v in spec.bic_variants]
+    return (len(segs), (ctypes.c_uint32 * max(len(segs), 1))(*segs),
+            len(variant_segs),
+            (ctypes.c_uint32 * max(len(variant_segs), 1))(*variant_segs),
+            int(spec.zvg), int(spec.hist))
+
+
 def fused_counters_cuda(x: torch.Tensor, spec: CounterSpec):
     """Run the fused counter pass on the card over words ``[T, L]`` or
     ``[B, T, L]`` (``uint16``, or ``int32`` holding 0..65535, contiguous).
@@ -54,12 +70,6 @@ def fused_counters_cuda(x: torch.Tensor, spec: CounterSpec):
     B, T, L = x3.shape
     if not (1 <= B <= 65535 and T >= 1 and L >= 1):
         raise ValueError(f"unsupported stream shape {tuple(x.shape)}")
-    segs = spec.unique_segments
-    if len(spec.bic_variants) > 64:
-        raise ValueError(f"{len(spec.bic_variants)} BIC variants exceed "
-                         f"the kernel's 64")
-    variant_segs = [sum(1 << segs.index(m) for m in v)
-                    for v in spec.bic_variants]
     counts = torch.empty((B, spec.n_rows, L), dtype=torch.int32,
                          device=x.device)
     rowzeros = torch.zeros((B, T), dtype=torch.int32, device=x.device)
@@ -68,10 +78,7 @@ def fused_counters_cuda(x: torch.Tensor, spec: CounterSpec):
         err = _function()(
             x3.data_ptr(), _WORD_BYTES[x.dtype], B, T, L,
             counts.data_ptr(), rowzeros.data_ptr(), spec.n_rows,
-            len(segs), (ctypes.c_uint32 * max(len(segs), 1))(*segs),
-            len(variant_segs),
-            (ctypes.c_uint32 * max(len(variant_segs), 1))(*variant_segs),
-            int(spec.zvg), int(spec.hist), stream)
+            *spec_args(spec), stream)
     if err:
         raise RuntimeError(f"power_counters kernel launch failed: CUDA "
                            f"error {err}")

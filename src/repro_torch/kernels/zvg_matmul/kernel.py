@@ -1,0 +1,124 @@
+"""Wrappers of the Hopper decode-path kernels (``csrc/zvg_matmul.cu``).
+
+``gated_row_matmul_cuda`` replaces the TPU kernel
+``repro/kernels/zvg_matmul/fused.py::gated_row_matmul`` and
+``fused_matmul_counters_cuda`` replaces ``fused_matmul_counters``; the
+source's header says how, and what bounds each. The library is built
+with ``nvcc`` at first use and called through ``ctypes`` on PyTorch's
+current stream. Both raise on tensors the kernels do not take and never
+fall back to the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.power_counters.kernel import spec_args
+from repro_torch.kernels.power_counters.spec import CounterSpec
+
+from .ref import check_operands
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SPEC = [_I, _P, _I, _P, _I, _I]      # spec_args
+
+
+@functools.cache
+def _functions():
+    lib = _build.load("zvg_matmul")
+    gemm = lib.zm_gated_row_matmul
+    gemm.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P]
+    fused = lib.zm_fused_matmul_counters
+    fused.argtypes = ([_P, _I, _P, _I, _P, _I, _I, _I, _I,
+                       _P, _P, _I, _I] + _SPEC
+                      + [_P, _P, _I, _I] + _SPEC + [_P])
+    for fn in (gemm, fused):
+        fn.restype = ctypes.c_int
+    return gemm, fused
+
+
+def _check_on_card(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got one on "
+                             f"{t.device}")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: operands on {tensors[0].device} and "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def gated_row_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """ZVG-gated ``x [M, K] @ w [K, N]`` on the card (float32 or
+    bfloat16 operands); matches :func:`.ref.gated_row_matmul_ref`: gated
+    rows bit for bit, live rows up to the order of the float32 sums."""
+    out_dtype = check_operands(x, w)
+    _check_on_card("gated_row_matmul_cuda", x, w)
+    (M, K), N = x.shape, w.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    gemm, _ = _functions()
+    with torch.cuda.device(x.device):
+        err = gemm(x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
+                   _DTYPE_CODE[w.dtype], out.data_ptr(),
+                   _DTYPE_CODE[out_dtype], M, K, N, _stream(x.device))
+    if err:
+        raise RuntimeError(f"gated_row_matmul kernel launch failed: CUDA "
+                           f"error {err}")
+    gated_row_matmul_cuda.launches += 1
+    return out
+
+
+def fused_matmul_counters_cuda(a: torch.Tensor, w: torch.Tensor,
+                               west_spec: CounterSpec,
+                               north_spec: CounterSpec, lanes_w: int,
+                               cols: int):
+    """K2's product of ``a [B, K]`` and ``w [K, N]`` and the counters of
+    the decode streams, in one launch; outputs as
+    :func:`.ref.fused_matmul_counters_ref`, the counters bit for bit."""
+    out_dtype = check_operands(a, w)
+    _check_on_card("fused_matmul_counters_cuda", a, w)
+    (B, K), N = a.shape, w.shape[1]
+    if min(B, K, N, lanes_w, cols) < 1 or B > 65535:
+        raise ValueError(f"unsupported decode shapes {tuple(a.shape)} x "
+                         f"{tuple(w.shape)}, lanes {lanes_w}, cols {cols}")
+    lanes_n = -(-N // cols) * cols
+    dev = a.device
+    product = torch.empty((B, N), dtype=out_dtype, device=dev)
+    wc = torch.empty((B, west_spec.n_rows, lanes_w), dtype=torch.int32,
+                     device=dev)
+    wz = torch.zeros((B, K), dtype=torch.int32, device=dev)
+    nc = torch.empty((north_spec.n_rows, lanes_n), dtype=torch.int32,
+                     device=dev)
+    nz = torch.zeros((K,), dtype=torch.int32, device=dev)
+    _, fused = _functions()
+    with torch.cuda.device(dev):
+        err = fused(a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
+                    _DTYPE_CODE[w.dtype], product.data_ptr(),
+                    _DTYPE_CODE[out_dtype], B, K, N,
+                    wc.data_ptr(), wz.data_ptr(), west_spec.n_rows, lanes_w,
+                    *spec_args(west_spec),
+                    nc.data_ptr(), nz.data_ptr(), north_spec.n_rows, lanes_n,
+                    *spec_args(north_spec), _stream(dev))
+    if err:
+        raise RuntimeError(f"fused_matmul_counters kernel launch failed: "
+                           f"CUDA error {err}")
+    fused_matmul_counters_cuda.launches += 1
+    return product, wc, wz, nc, nz
+
+
+#: kernel launches so far; set them to 0 before a run to count that run's
+gated_row_matmul_cuda.launches = 0
+fused_matmul_counters_cuda.launches = 0

@@ -1,0 +1,38 @@
+"""Entry points of the decode-path kernels. ``backend`` picks the
+implementation as :mod:`repro_torch.kernels.power_counters.ops` does:
+
+* ``"auto"`` (default) -- the Hopper kernel for CUDA tensors, the plain
+  PyTorch version for CPU tensors;
+* ``"cuda"`` -- the kernel; raises for tensors that are not on the card;
+* ``"ref"``  -- the plain version, on whatever device the tensors are.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.power_counters.ops import resolve_backend
+from repro_torch.kernels.power_counters.spec import CounterSpec
+
+from .kernel import fused_matmul_counters_cuda, gated_row_matmul_cuda
+from .ref import fused_matmul_counters_ref, gated_row_matmul_ref
+
+
+def gated_row_matmul(x: torch.Tensor, w: torch.Tensor,
+                     backend: str | None = None) -> torch.Tensor:
+    """ZVG-gated ``x [M, K] @ w [K, N]`` (see :mod:`.ref`)."""
+    if resolve_backend(backend, x.device) == "cuda":
+        return gated_row_matmul_cuda(x, w)
+    return gated_row_matmul_ref(x, w)
+
+
+def fused_matmul_counters(a: torch.Tensor, w: torch.Tensor,
+                          west_spec: CounterSpec, north_spec: CounterSpec,
+                          lanes_w: int, cols: int,
+                          backend: str | None = None):
+    """The gated decode product and its streams' counters in one pass
+    (see :func:`.ref.fused_matmul_counters_ref` for the outputs)."""
+    if resolve_backend(backend, a.device) == "cuda":
+        return fused_matmul_counters_cuda(a, w, west_spec, north_spec,
+                                          lanes_w, cols)
+    return fused_matmul_counters_ref(a, w, west_spec, north_spec, lanes_w,
+                                     cols)

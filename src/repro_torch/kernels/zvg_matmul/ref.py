@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the decode-path kernels.
+
+:func:`gated_row_matmul_ref` is ``torch.matmul`` with the row gate;
+:func:`fused_matmul_counters_ref` is that product plus the plain counter
+pass (:func:`repro_torch.kernels.power_counters.ref.fused_counters_ref`)
+over the same west and north word streams the kernel walks. The CPU runs
+them, the ``"ref"`` backend runs them on any device, and the card-side
+checks hold the kernels against them.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bits import to_bits
+from repro_torch.kernels.power_counters.ref import fused_counters_ref
+from repro_torch.kernels.power_counters.spec import CounterSpec
+
+#: operand dtypes the decode kernels take
+DTYPES = (torch.float32, torch.bfloat16)
+
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def check_operands(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
+    """Raise on operands the decode kernels do not take; returns the
+    product's dtype (float32 unless both are bfloat16)."""
+    if x.dtype not in DTYPES or w.dtype not in DTYPES:
+        raise TypeError(f"operands must be float32 or bfloat16, got "
+                        f"{x.dtype} and {w.dtype}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"operands must be [M, K] x [K, N], got "
+                         f"{tuple(x.shape)} x {tuple(w.shape)}")
+    return torch.promote_types(x.dtype, w.dtype)
+
+
+def row_is_live(x: torch.Tensor) -> torch.Tensor:
+    """``[M]`` bool: the row holds a word whose bits are not all zero, so
+    -0.0 and subnormal rows are live and only all-+0.0 rows are gated."""
+    return (x.view(_INT_VIEW[x.dtype]) != 0).any(dim=-1)
+
+
+def gated_row_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """ZVG-gated ``x [M, K] @ w [K, N]``: a live row is ``torch.matmul``'s,
+    a gated row is +0.0, which is also that row's ungated product for
+    finite weights."""
+    out_dtype = check_operands(x, w)
+    out = torch.matmul(x.to(out_dtype), w.to(out_dtype))
+    return torch.where(row_is_live(x)[:, None], out, out.new_zeros(()))
+
+
+def pad_lanes(words: torch.Tensor, lanes: int) -> torch.Tensor:
+    """``[T, L]`` words widened to ``lanes`` lanes with zero words."""
+    extra = lanes - words.shape[-1]
+    if extra <= 0:
+        return words
+    return torch.cat([words, words.new_zeros(words.shape[:-1] + (extra,))],
+                     dim=-1)
+
+
+def fused_matmul_counters_ref(a: torch.Tensor, w: torch.Tensor,
+                              west_spec: CounterSpec,
+                              north_spec: CounterSpec, lanes_w: int,
+                              cols: int):
+    """Gated product of ``a [B, K]`` and ``w [K, N]`` plus the decode
+    streams' counters: per row ``b``, the west stream ``[K, lanes_w]``
+    with the row's bfloat16 words in lane 0 and zero words elsewhere;
+    once, the north stream of ``w``'s words padded with zero-word lanes to
+    a multiple of ``cols``. Returns ``(product [B, N], west_counts
+    int32[B, n_rows_w, lanes_w], west_rowzeros int32[B, K], north_counts
+    int32[n_rows_n, Np], north_rowzeros int32[K])``."""
+    product = gated_row_matmul_ref(a, w)
+    B, K = a.shape
+    lanes_n = -(-w.shape[1] // cols) * cols
+    x_w = torch.zeros((B, K, lanes_w), dtype=torch.int32, device=a.device)
+    x_w[:, :, 0] = to_bits(a)
+    wc, wz = fused_counters_ref(x_w, west_spec)
+    nc, nz = fused_counters_ref(pad_lanes(to_bits(w), lanes_n), north_spec)
+    return product, wc, wz, nc, nz

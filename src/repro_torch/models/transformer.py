@@ -1,0 +1,133 @@
+"""Block composition and the layer stack.
+
+A block ``"attn+mlp"`` is pre-norm attention then a pre-norm MLP, each
+added to the residual stream. The stack is a loop over the layers in
+execution order (``cfg.block_specs``); the JAX package's scanned groups
+are unstacked by :mod:`.convert`, and the port has no remat.
+
+Modes (one code path each, shared weights):
+  prefill -- parallel over S, returns per-layer KV states padded to the
+             cache length;
+  decode  -- S = 1 with per-layer ``(k_cache, v_cache)`` states
+             ``[B, cache_len, Hkv, D]``; row ``i`` writes its keys and
+             values at ``positions[i, 0]``, which lets the serving engine
+             co-batch requests sitting at different positions. The port
+             writes the caches in place (the JAX package returns new
+             arrays that XLA aliases to the donated ones).
+
+Projection weights keep the names ``wq``/``wk``/``wv``/``wo``: the power
+accountant's site names come from them.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as A
+from . import layers as L
+from . import matmul as mm
+from .config import ArchConfig
+
+
+def parse_spec(spec: str) -> tuple[str, str]:
+    mixer, _, ffn = spec.partition("+")
+    return mixer, ffn or "none"
+
+
+# ----------------------------------------------------------------- builders
+def make_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": L.dense_param(d, h * hd, gen),
+         "wk": L.dense_param(d, kv * hd, gen),
+         "wv": L.dense_param(d, kv * hd, gen),
+         "wo": L.dense_param(h * hd, d, gen)}
+    if cfg.qkv_bias:
+        p["bq"] = L.bias_param(h * hd, gen)
+        p["bk"] = L.bias_param(kv * hd, gen)
+        p["bv"] = L.bias_param(kv * hd, gen)
+    return p
+
+
+def make_block(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    return {"norm1": {"scale": L.scale_param(cfg.d_model, gen)},
+            "mixer": make_attention(cfg, gen),
+            "norm2": {"scale": L.scale_param(cfg.d_model, gen)},
+            "ffn": L.make_mlp(cfg.d_model, cfg.d_ff, gen,
+                              gated=cfg.mlp_gated)}
+
+
+# --------------------------------------------------------------- attention
+def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                    positions: torch.Tensor, state=None,
+                    prefill: bool = False, cache_len: int = 0,
+                    backend: str | None = None):
+    """Attention of one block. Returns ``(out, state)``: the decode
+    state updated in place, the prefill state padded to ``cache_len``,
+    or ``None``."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    scale = cfg.attn_scale or None
+
+    def proj(w, bname, nh):
+        y = mm.matmul(x, p[w], backend)
+        if bname in p:
+            y = y + p[bname]
+        return y.reshape(b, s, nh, hd)
+
+    q = proj("wq", "bq", h)
+    k = proj("wk", "bk", kv)
+    v = proj("wv", "bv", kv)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if state is not None:                       # ---- single-token decode
+        kc, vc = state
+        bpos = positions[:, 0].long()
+        rows = torch.arange(b, device=x.device)
+        kc[rows, bpos] = k[:, 0].to(kc.dtype)
+        vc[rows, bpos] = v[:, 0].to(vc.dtype)
+        out = A.decode_attention(q, kc, vc, bpos + 1, scale=scale,
+                                 softcap=cfg.attn_softcap)
+        out = mm.matmul(out.reshape(b, s, h * hd), p["wo"], backend)
+        return out, (kc, vc)
+
+    out = A.chunked_attention(q, k, v, causal=True, scale=scale,
+                              softcap=cfg.attn_softcap,
+                              block_k=cfg.attn_block_k)
+    out = out.reshape(b, s, h * hd) @ p["wo"]
+    if not prefill:
+        return out, None
+    pad = (b, cache_len - s, kv, hd)
+    return out, (torch.cat([k, k.new_zeros(pad)], dim=1),
+                 torch.cat([v, v.new_zeros(pad)], dim=1))
+
+
+# -------------------------------------------------------------------- block
+def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                positions: torch.Tensor, state=None, prefill: bool = False,
+                cache_len: int = 0, backend: str | None = None):
+    h = L.rms_norm(x, p["norm1"]["scale"])
+    out, new_state = apply_attention(p["mixer"], h, cfg, positions=positions,
+                                     state=state, prefill=prefill,
+                                     cache_len=cache_len, backend=backend)
+    x = x + cfg.resid_mult * out
+    h = L.rms_norm(x, p["norm2"]["scale"])
+    x = x + cfg.resid_mult * L.apply_mlp(p["ffn"], h, cfg.act, backend)
+    return x, new_state
+
+
+# -------------------------------------------------------------------- stack
+def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
+                positions: torch.Tensor, states: list | None = None,
+                prefill: bool = False, cache_len: int = 0,
+                backend: str | None = None):
+    """Run every layer. Returns ``(x, states)``: the per-layer states for
+    decode (updated in place) and prefill, else ``None``."""
+    new_states = [] if (states is not None or prefill) else None
+    for i, p in enumerate(layers):
+        x, st = apply_block(p, x, cfg, positions=positions,
+                            state=None if states is None else states[i],
+                            prefill=prefill, cache_len=cache_len,
+                            backend=backend)
+        if new_states is not None:
+            new_states.append(st)
+    return x, new_states

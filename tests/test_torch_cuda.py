@@ -4,8 +4,10 @@ present; run this tier on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integer counters must be bitwise equal. This file imports no JAX: the
-GPU machine need not have it.
+Integer counters must be bitwise equal; decode products (K2, K3) of the
+kernel and of the plain version lie within ``PRODUCT_TOL`` of the float32
+product (the rule ``chip_smoke.py`` states), and gated rows are
+bit-equal. This file imports no JAX: the GPU machine need not have it.
 """
 import pytest
 import torch
@@ -15,11 +17,15 @@ from repro_torch.core import bic, systolic
 from repro_torch.kernels.power_counters import CounterSpec, edge_counters
 from repro_torch.kernels.power_counters import kernel as k1
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
+from repro_torch.kernels.zvg_matmul import kernel as kz
+from repro_torch.kernels.zvg_matmul import ref as zref
 
 pytestmark = pytest.mark.cuda
 
 FULL = CounterSpec(bic_variants=tuple(bic.NAMED_SEGMENTS.values()),
                    zvg=True, hist=True)
+#: |out - f32| <= REL * |f32| + ACC * (|x| @ |w|) + 2**-126, per dtype
+PRODUCT_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-5)}
 
 
 @pytest.fixture
@@ -122,3 +128,101 @@ def test_design_report_on_the_card_equals_plain(cuda):
     for name in ev_cpu:
         for c, v in ev_cpu[name]["energy"].items():
             assert float(ev_gpu[name]["energy"][c]) == float(v), (name, c)
+
+
+def _decode_operands(M, K, N, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=g)
+    w = torch.randn(K, N, generator=g) * K ** -0.5
+    for r, v in zip(range(1, M, 2), (0.0, -0.0, 1e-39)):
+        x[r] = v
+    return x.to(dtype).cuda(), w.to(dtype).cuda()
+
+
+def _assert_product(got, plain, x, w):
+    gated = ~zref.row_is_live(x)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[gated].view(bits), plain[gated].view(bits))
+    f32 = x.float() @ w.float()
+    rel, acc = PRODUCT_TOL[got.dtype]
+    bound = (rel * f32.abs() + acc * (x.float().abs() @ w.float().abs())
+             + 2.0 ** -126)
+    for out in (got, plain):
+        assert ((out.float() - f32).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M,K,N", [(4, 1024, 1024), (4, 2816, 1024),
+                                   (7, 63, 129), (1, 1, 1), (3, 1, 129)])
+def test_gated_row_matmul_kernel_matches_plain(cuda, M, K, N, dtype):
+    x, w = _decode_operands(M, K, N, dtype, seed=M + K + N)
+    before = kz.gated_row_matmul_cuda.launches
+    got = kz.gated_row_matmul_cuda(x, w)
+    assert kz.gated_row_matmul_cuda.launches == before + 1
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    _assert_product(got, plain, x, w)
+
+
+@pytest.mark.parametrize("B,K,N,lanes_w,cols", [
+    (4, 1024, 256, 16, 16), (3, 63, 129, 5, 32), (1, 1, 1, 16, 16)])
+def test_fused_matmul_counters_kernel_matches_plain(cuda, B, K, N, lanes_w,
+                                                    cols):
+    a, _ = _decode_operands(B, K, N, torch.bfloat16, seed=K)
+    _, w = _decode_operands(B, K, N, torch.float32, seed=N)
+    for wspec, nspec in ((CounterSpec(zvg=True),
+                          CounterSpec(bic_variants=(bic.MANTISSA_ONLY,))),
+                         (FULL, FULL)):
+        got = kz.fused_matmul_counters_cuda(a, w, wspec, nspec, lanes_w,
+                                            cols)
+        want = zref.fused_matmul_counters_ref(a, w, wspec, nspec, lanes_w,
+                                              cols)
+        torch.cuda.synchronize()
+        for g, p in zip(got[1:], want[1:]):
+            assert torch.equal(g, p)
+        _assert_product(got[0], want[0], a, w)
+
+
+def test_decode_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x, w = _decode_operands(4, 8, 6, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kz.gated_row_matmul_cuda(x, w.t().contiguous().t())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kz.gated_row_matmul_cuda(x.half(), w.half())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kz.gated_row_matmul_cuda(x, w.cpu())
+
+
+def test_serve_engine_on_the_card_kernels_equal_plain(cuda):
+    """Smoke-size serving on the card: the kernels' run and the plain
+    versions' run give equal tokens and bitwise-equal energies."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    from repro_torch.serve import SamplingParams, ServeConfig, ServeEngine
+
+    cfg = SMOKES["qwen1.5-0.5b"].with_(compute_dtype="float32")
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab, (int(n),), generator=g).tolist()
+               for n in torch.randint(2, 24, (6,), generator=g)]
+    runs = []
+    for backend in ("auto", "ref"):
+        eng = ServeEngine(params, cfg, ServeConfig(
+            max_slots=3, cache_len=48, power_monitor=True, seed=3,
+            kernel_backend=backend))
+        counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+                   kz.fused_matmul_counters_cuda)
+        before = [fn.launches for fn in counted]
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_new_tokens=5, sampling=SamplingParams()
+                       if i % 2 == 0 else SamplingParams(0.8, 5))
+        runs.append({r.uid: r for r in eng.run()})
+        launched = [fn.launches - b for fn, b in zip(counted, before)]
+        assert all(launched) if backend == "auto" else not any(launched)
+    for uid, r in runs[0].items():
+        if uid % 2 == 0:
+            assert r.generated == runs[1][uid].generated
+        if r.generated == runs[1][uid].generated:
+            assert r.power.energy == runs[1][uid].power.energy

@@ -74,12 +74,22 @@ def test_cli_runs_on_the_cpu_when_asked():
     assert out.stdout.count("\n") > 28
 
 
+def test_serve_cli_runs_on_the_cpu_when_asked():
+    out = _run(["-m", "repro_torch.serve", "--smoke", "--device", "cpu",
+                "--requests", "5", "--max-new", "6"])
+    assert out.returncode == 0, out.stderr
+    assert "serve-wide (energy-weighted)" in out.stdout
+    assert out.stdout.count(" length ") == 5
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
-    out = _run(["-m", "repro_torch.apps.cnn", "--res", "32"])
-    assert out.returncode != 0
-    assert "CUDA is not available" in out.stderr
+    for args in (["-m", "repro_torch.apps.cnn", "--res", "32"],
+                 ["-m", "repro_torch.serve", "--smoke"]):
+        out = _run(args)
+        assert out.returncode != 0
+        assert "CUDA is not available" in out.stderr
     from repro_torch.apps.cnn import analysis
     with pytest.raises(RuntimeError, match="device='cpu'"):
         analysis.analyze_network("mobilenet", n_images=1, res=32)

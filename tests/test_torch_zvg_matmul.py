@@ -1,0 +1,152 @@
+"""The decode-path kernels' plain versions against the JAX package's
+Pallas kernels (run in interpret mode on the CPU), on the same inputs.
+
+* ``gated_row_matmul_ref`` vs ``repro.kernels.zvg_matmul.fused.
+  gated_row_matmul``: ragged shapes, bf16 and f32, all-zero, -0.0 and
+  subnormal rows. +0.0 and -0.0 count as equal: the reference fills
+  -0.0 in gated columns whose weights are all negative, the port +0.0
+  (its own ungated product; ROADMAP fault 3). bf16 products are bitwise
+  equal; f32 ones agree within ``F32_ACC * (|x| @ |w|)``, since XLA's
+  CPU dot sums in another order. Values below ``SUBNORMAL_FLOOR`` count
+  as zero: XLA's CPU code treats subnormal inputs and results as zero,
+  PyTorch's computes with them (a row of 1e-39 words sums to ~1e-37).
+* ``fused_matmul_counters_ref`` vs ``fused_matmul_counters``: the four
+  counter arrays bitwise, the product as above.
+
+The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.power_counters.spec import CounterSpec as JSpec
+from repro.kernels.zvg_matmul import fused as jfused
+from repro_torch.core import bic
+from repro_torch.kernels.power_counters import CounterSpec
+from repro_torch.kernels.zvg_matmul import kernel, ops, ref
+
+#: f32 products vs XLA's CPU dot: sums of K terms in another order
+F32_ACC = 1e-6
+#: products of subnormal rows, which XLA's CPU code flushes to zero
+SUBNORMAL_FLOOR = 1e-30
+
+SHAPES = [(1, 1, 1), (3, 64, 48), (4, 96, 128), (7, 5, 9), (8, 63, 129),
+          (1, 1100, 300), (4, 1024, 256)]
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _operands(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, k)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    x[rng.random(x.shape) < 0.3] = 0.0
+    for r, v in zip(range(1, m), (0.0, -0.0, 1e-39)):
+        x[r] = v                    # +0.0, -0.0 and subnormal rows
+    if n > 1:
+        w[:, 0] = -np.abs(w[:, 0]) - 0.01   # a gated column's -0.0 fill
+    return x, w
+
+
+def _pair(x, w, jdt, tdt):
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(tdt)
+    tw = torch.from_numpy(np.array(jw.astype(jnp.float32))).to(tdt)
+    return jx, jw, tx, tw
+
+
+def _flush(a):
+    return np.where(np.abs(a) < SUBNORMAL_FLOOR, 0.0, a)
+
+
+def _assert_products(got, want, tx, tw):
+    dtype = got.dtype
+    got = _flush(got.float().numpy())
+    want = _flush(np.asarray(want.astype(jnp.float32)))
+    if dtype == torch.bfloat16:
+        np.testing.assert_array_equal(got, want)   # +0.0 == -0.0 here
+        return
+    bound = F32_ACC * (tx.float().abs() @ tw.float().abs()).numpy()
+    assert (np.abs(got - want) <= bound).all()
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_gated_row_matmul_plain_matches_jax(shape, jdt, tdt):
+    x, w = _operands(*shape, seed=sum(shape))
+    jx, jw, tx, tw = _pair(x, w, jdt, tdt)
+    got = ref.gated_row_matmul_ref(tx, tw)
+    assert got.dtype == tdt and got.shape == (shape[0], shape[2])
+    _assert_products(got, jfused.gated_row_matmul(jx, jw, interpret=True),
+                     tx, tw)
+
+
+def test_gated_rows_fill_plus_zero_and_only_all_plus_zero_rows_gate():
+    x = torch.tensor([[0.0, 0.0], [-0.0, 0.0], [1e-40, 0.0], [0.0, 2.0]])
+    w = -torch.ones(2, 3)
+    live = ref.row_is_live(x)
+    assert live.tolist() == [False, True, True, True]
+    out = ref.gated_row_matmul_ref(x, w)
+    # the gated row is +0.0 (sign bit clear), the port's ungated product
+    assert (out[0].view(torch.int32) == 0).all()
+    assert torch.equal(out[:1], x[:1] @ w)
+    assert torch.equal(out[1:], x[1:] @ w)
+
+
+@pytest.mark.parametrize("B,K,N,lanes_w,cols,menu", [
+    (4, 1024, 256, 16, 16, "paper"), (1, 1, 1, 16, 16, "paper"),
+    (3, 63, 129, 5, 32, "full"), (5, 100, 7, 40, 3, "full")])
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])
+def test_fused_matmul_counters_plain_matches_jax(B, K, N, lanes_w, cols, menu,
+                                                 jdt, tdt):
+    if menu == "paper":
+        specs = [dict(zvg=True), dict(bic_variants=(bic.MANTISSA_ONLY,))]
+    else:
+        full = dict(bic_variants=tuple(bic.NAMED_SEGMENTS.values()),
+                    zvg=True, hist=True)
+        specs = [full, full]
+    x, w = _operands(B, K, N, seed=K + N)
+    jx, jw, tx, tw = _pair(x, w, jdt, tdt)
+    # the monitored weights stay float32 masters, as the accountant hands
+    jw, tw = jnp.asarray(w), torch.from_numpy(w.copy())
+    want = jfused.fused_matmul_counters(jx, jw, JSpec(**specs[0]),
+                                        JSpec(**specs[1]), lanes_w, cols,
+                                        interpret=True)
+    got = ref.fused_matmul_counters_ref(tx, tw, CounterSpec(**specs[0]),
+                                        CounterSpec(**specs[1]), lanes_w,
+                                        cols)
+    for name, g, j in zip(("west_counts", "west_rowzeros", "north_counts",
+                           "north_rowzeros"), got[1:], want[1:]):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j),
+                                      err_msg=name)
+    _assert_products(got[0], want[0], tx, tw)
+
+
+def test_dispatch_on_the_cpu_takes_the_plain_version_and_refuses_cuda():
+    x, w = torch.randn(3, 8), torch.randn(8, 5)
+    before = kernel.gated_row_matmul_cuda.launches
+    assert torch.equal(ops.gated_row_matmul(x, w),
+                       ref.gated_row_matmul_ref(x, w))
+    assert torch.equal(ops.gated_row_matmul(x, w, "ref"),
+                       ref.gated_row_matmul_ref(x, w))
+    assert kernel.gated_row_matmul_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gated_row_matmul(x, w, "cuda")
+    spec = CounterSpec(zvg=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.fused_matmul_counters(x, w, spec, spec, 16, 16, "cuda")
+    with pytest.raises(ValueError, match="unknown counter backend"):
+        ops.gated_row_matmul(x, w, "pallas")
+
+
+def test_operands_the_kernels_do_not_take_raise():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ref.gated_row_matmul_ref(torch.ones(2, 3, dtype=torch.int8),
+                                 torch.ones(3, 4, dtype=torch.int8))
+    with pytest.raises(ValueError, match=r"\[M, K\] x \[K, N\]"):
+        ref.gated_row_matmul_ref(torch.ones(2, 3), torch.ones(4, 4))
+    # mixed float types give a float32 product, as jnp.result_type does
+    out = ref.gated_row_matmul_ref(torch.ones(2, 3, dtype=torch.bfloat16),
+                                   torch.ones(3, 4))
+    assert out.dtype == torch.float32
