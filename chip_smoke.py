@@ -7,8 +7,8 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds every CUDA source of the port (one ``nvcc`` each, all at
-once) and drives the port's two main paths, each with the kernels'
-launch counts set to 0 just before it and read just after:
+once: three libraries) and drives the port's main paths, each with the
+kernels' launch counts set to 0 just before it and read just after:
 
 * the paper's CNN power measurement, ``analyze_network("resnet50")`` at
   224 px with the whole design menu, then ``select_network``: every
@@ -23,6 +23,15 @@ launch counts set to 0 just before it and read just after:
   accounting. The same requests then run with ``kernel_backend="ref"``
   (every plain version) and the two runs' tokens and energies are
   compared.
+* paged power-accounted serving: ``ServeConfig(paging=PagingConfig(...))``
+  at the same width. Kernel: the paged decode attention (K4), once a
+  layer a decode step, beside K1-K3. (a) With ample pages it serves the
+  slot run's requests with the slot engine's tokens and energies; (b) at
+  the slot run's memory it serves 16 requests with a shared system
+  prompt through 8 rows, with chunked prefill, shared prefixes and two
+  classes; (c) with half the pages it must preempt. The greedy tokens of
+  (b) and (c) are held against an uncontended run, and (b) against
+  itself with every plain version.
 
 Before them, each kernel is held against its plain PyTorch version on
 the card (counters bitwise, products within a stated tolerance); after
@@ -57,6 +66,8 @@ KERNEL_REPLACES = "src/repro/kernels/power_counters/kernel.py:335"
 ZVG_SOURCE = "src/repro_torch/csrc/zvg_matmul.cu"
 K2_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:96"
 K3_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:179"
+K4_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
+K4_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:259"
 
 #: decode products of the kernels (K2, K3) and of their plain versions
 #: against the float32 product of the same operands, per output dtype:
@@ -78,6 +89,18 @@ SERVE_SLOTS = 4
 SERVE_CACHE = 256
 SERVE_MAX_NEW = 32
 SERVE_STOCHASTIC = (2, 5)     # temperature 0.8, top-k 5; the rest greedy
+
+#: K4 is held to its plain version over its case list (and stated
+#: tolerance, ``repro_torch.kernels.zvg_matmul.cases``) once per seed
+PAGED_SEEDS = (0, 1, 2, 3, 4, 5, 6, 7)
+
+#: the paged runs: Qwen1.5-0.5B at full width, pages of 16 positions
+PAGE = 16
+PAGED_REQUESTS = 16
+PAGED_ROWS = 8
+PAGED_HI = (0, 5, 10, 15)           # the "hi" class (priority 1)
+PAGED_STOCHASTIC = (3, 7, 11, 14)   # temperature 0.8, top-k 5
+PAGED_SYSTEM = 64                   # shared system-prompt tokens
 
 
 def log(msg: str) -> None:
@@ -393,24 +416,43 @@ def serving_requests(vocab: int):
     return prompts, sampling
 
 
-def serve(params, cfg, backend: str, record_top2: bool = False):
+def record_gaps(eng) -> dict:
+    """Wrap ``eng``'s prefill sampling and decode step so that each
+    token's top-two logit gap is kept: ``gaps[(uid, j)]`` is the gap of
+    the logits request ``uid``'s token ``j`` was drawn from (the tie rule
+    of :func:`compare_runs` reads it)."""
+    gaps: dict = {}
+    decode, sample_first = eng._decode, eng._sample_first
+
+    def gap(logits):
+        v = logits.topk(2, dim=-1).values.float().cpu()
+        return (v[:, 0] - v[:, 1]).tolist()
+
+    def recording_decode(*args):
+        logits = decode(*args)
+        g = gap(logits)
+        for row in eng.cache.live_slots():
+            req = eng._running[row]
+            gaps[(req.uid, len(req.generated))] = g[row]
+        return logits
+
+    def recording_first(req, logits):
+        gaps[(req.uid, len(req.generated))] = gap(logits)[0]
+        return sample_first(req, logits)
+    eng._decode, eng._sample_first = recording_decode, recording_first
+    return gaps
+
+
+def serve(params, cfg, backend: str, record: bool = False):
     """Serve the smoke's requests with ``kernel_backend=backend``.
-    Returns ``(engine, {uid: request}, wall seconds, top2)`` where
-    ``top2[step]`` is that decode step's top-two logits per row."""
+    Returns ``(engine, {uid: request}, wall seconds, gaps)`` (the gaps of
+    :func:`record_gaps` when ``record``)."""
     from repro_torch.serve import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, cfg, ServeConfig(
         max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE, power_monitor=True,
         kernel_backend=backend))
-    top2 = {}
-    if record_top2:
-        decode = eng._decode
-
-        def recording(*args):
-            logits = decode(*args)
-            top2[eng.stats["steps"]] = logits.topk(2, dim=-1).values.cpu()
-            return logits
-        eng._decode = recording
+    gaps = record_gaps(eng) if record else {}
     prompts, sampling = serving_requests(cfg.vocab)
     for p, sp in zip(prompts, sampling):
         eng.submit(p, max_new_tokens=SERVE_MAX_NEW, sampling=sp)
@@ -418,15 +460,15 @@ def serve(params, cfg, backend: str, record_top2: bool = False):
     t0 = time.perf_counter()
     done = {r.uid: r for r in eng.run()}
     torch.cuda.synchronize()
-    return eng, done, time.perf_counter() - t0, top2
+    return eng, done, time.perf_counter() - t0, gaps
 
 
-def check_served(done: dict, cfg) -> None:
-    """What the serving run must give whatever its kernels: every request
+def check_served(done: dict, cfg, n: int = SERVE_REQUESTS) -> None:
+    """What a serving run must give whatever its kernels: every request
     retired by length with in-vocabulary tokens, finite energies and a
     plausible saving."""
-    if len(done) != SERVE_REQUESTS:
-        raise AssertionError(f"{len(done)} of {SERVE_REQUESTS} retired")
+    if len(done) != n:
+        raise AssertionError(f"{len(done)} of {n} retired")
     for r in done.values():
         if (r.finish_reason != "length" or len(r.generated) != SERVE_MAX_NEW
                 or not all(0 <= t < cfg.vocab for t in r.generated)):
@@ -481,23 +523,18 @@ def phase_serving():
 
     for fn in counted:
         fn.launches = 0
-    ref_eng, ref_done, ref_wall, top2 = serve(params, cfg, "ref",
-                                              record_top2=True)
+    ref_eng, ref_done, ref_wall, gaps = serve(params, cfg, "ref",
+                                              record=True)
     if any(fn.launches for fn in counted):
         raise AssertionError("the plain run launched a kernel")
     check_served(ref_done, cfg)
     log(f"the same requests with kernel_backend='ref' (every plain "
         f"version): {ref_wall:.3f} s")
-    equal = compare_runs(done, ref_done, top2)
+    equal = compare_runs(done, ref_done, gaps, SERVE_STOCHASTIC,
+                         "the plain run")
     if equal == len(done):
-        rep, ref_rep = eng.trace_report(), ref_eng.trace_report()
-        for site, ref_site in zip(rep.sites, ref_rep.sites):
-            for d, comps in ref_site.designs.items():
-                for c, v in comps.items():
-                    assert_close(site.designs[d][c], v,
-                                 f"trace_report {site.name} {d}/{c}")
-        log("trace_report() aggregates equal the plain run's (rtol 1e-6)")
-    return cfg, eng, launches
+        assert_reports_close(eng, ref_eng, "the plain run's")
+    return cfg, params, eng, done, launches
 
 
 def assert_close(got: float, want: float, ctx: str) -> None:
@@ -505,39 +542,306 @@ def assert_close(got: float, want: float, ctx: str) -> None:
         raise AssertionError(f"{ctx}: {got!r} vs {want!r} beyond rtol 1e-6")
 
 
-def compare_runs(done: dict, ref_done: dict, top2: dict) -> int:
-    """Greedy tokens equal across the two runs, or a tie in the plain
-    run's logits where they part; energies of every request with equal
-    tokens within rtol 1e-6. Returns how many requests had equal tokens."""
+def assert_reports_close(eng, ref_eng, what: str) -> None:
+    rep, ref_rep = eng.trace_report(), ref_eng.trace_report()
+    if [s.name for s in rep.sites] != [s.name for s in ref_rep.sites]:
+        raise AssertionError(f"trace_report() sites differ from {what}")
+    for site, ref_site in zip(rep.sites, ref_rep.sites):
+        for d, comps in ref_site.designs.items():
+            for c, v in comps.items():
+                assert_close(site.designs[d][c], v,
+                             f"trace_report {site.name} {d}/{c}")
+    log(f"trace_report() aggregates equal {what} (rtol 1e-6)")
+
+
+def compare_runs(done: dict, ref_done: dict, gaps: dict, stochastic,
+                 what: str, same_prefill: bool = True) -> int:
+    """Greedy tokens equal across the two runs, or a tie in the reference
+    run's logits where they part (``gaps`` from :func:`record_gaps` on
+    the reference run). With ``same_prefill`` both runs prefill every
+    request alike (the same plain prefill, no shared prefixes, no
+    preemption): a first-token difference fails outright, and the
+    energies of every request with equal tokens agree within rtol 1e-6.
+    Without it (a run with chunked prefill, shared prefixes or preemption
+    against the uncontended run) a first token too may part at a tie,
+    and energies are not compared: those features change what a request
+    pays. Requests in ``stochastic`` that part are logged, not compared.
+    Returns how many requests had equal tokens."""
     equal = 0
     for uid, r in done.items():
         p = ref_done[uid]
         if r.generated == p.generated:
             equal += 1
+            if not same_prefill:
+                continue
             for d, comps in p.power.energy.items():
                 for c, v in comps.items():
                     assert_close(r.power.energy[d][c], v,
                                  f"request {uid} energy {d}/{c}")
             continue
-        if uid in SERVE_STOCHASTIC:
-            log(f"request {uid} (sampled): tokens part from the plain "
-                f"run's; not compared")
+        if uid in stochastic:
+            log(f"request {uid} (sampled): tokens part from {what}'s; not "
+                f"compared")
             continue
         j = next(i for i, (a, b) in enumerate(zip(r.generated, p.generated))
                  if a != b)
-        step = p.start_step + j - 1       # token j >= 1 is decode's
-        v = top2[step][p.slot]
-        margin = float(v[0] - v[1])
-        if j == 0 or not margin < LOGIT_TIE:
+        if j == 0 and same_prefill:
             raise AssertionError(
-                f"greedy request {uid} parts from the plain run at token "
-                f"{j}, top-2 logit margin {margin!r}")
+                f"greedy request {uid} parts from {what} at its first token,"
+                f" which both runs draw from the same prefill")
+        margin = gaps[(uid, j)]
+        if not margin < LOGIT_TIE:
+            raise AssertionError(
+                f"greedy request {uid} parts from {what} at token {j}, "
+                f"top-2 logit margin {margin!r}")
         log(f"greedy request {uid}: a tie -- the tokens part at token {j} "
-            f"where the plain run's top two logits are {margin!r} apart "
+            f"where {what}'s top two logits are {margin!r} apart "
             f"(< {LOGIT_TIE})")
-    log(f"{equal} of {len(done)} requests' tokens equal the plain run's; "
-        f"their per-request energies agree within rtol 1e-6")
+    log(f"{equal} of {len(done)} requests' tokens equal {what}'s"
+        + ("; their per-request energies agree within rtol 1e-6"
+           if same_prefill else ""))
     return equal
+
+
+# ------------------------------------------------- paged attention (K4)
+def paged_attention_bytes(k_pool, q, pages, lengths) -> int:
+    """Bytes the paged decode attention must move: each K and V position
+    below some row's length once (rows that share a prefix page need it
+    once), q and the output, the tables and lengths."""
+    _, ps, kv, hd = k_pool.shape
+    pos = torch.arange(pages.shape[1] * ps, device=pages.device)
+    slots = pages.long().repeat_interleave(ps, dim=1) * ps + pos % ps
+    used = slots[pos[None, :] < lengths.long()[:, None]].unique().numel()
+    return (used * kv * hd * 2 * k_pool.element_size()
+            + 2 * q.numel() * q.element_size()
+            + 4 * (pages.numel() + lengths.numel()))
+
+
+def phase_paged_kernel_cases() -> tuple[dict, float, dict]:
+    """K4 against its plain version on the card over the case list, once
+    for each of ``PAGED_SEEDS``: ``rep`` 1 to 8, hd 16 to 128, ps 8, 16,
+    32, B 1 to 8, softcap 0 and 5, bfloat16 and float32, and the serving
+    shape. Beside each case, a planted fault: the kernel with each row's
+    last position cut off (``lengths - 1`` where above 1), which the
+    tolerance must catch in some case. Returns the largest relative error
+    per dtype, the largest absolute one, and the planted fault's relative
+    error per dtype (its smallest and largest over the cases, and in how
+    many cases the tolerance catches it)."""
+    from repro_torch.kernels.zvg_matmul import kernel, ref
+    from repro_torch.kernels.zvg_matmul.cases import (ATTN_TOL, PAGED_CASES,
+                                                      paged_case,
+                                                      relative_error)
+    from repro_torch.models.attention import decode_attention
+
+    names = {d: str(d).split(".")[-1] for d in ATTN_TOL}
+    err = dict.fromkeys(names.values(), 0.0)
+    fault = {n: [] for n in names.values()}
+    abs_err = 0.0
+    for seed in PAGED_SEEDS:
+        for i, (*shape, cap) in enumerate(PAGED_CASES):
+            for dtype, name in names.items():
+                q, kp, vp, pages, lengths = paged_case(
+                    *shape, dtype, seed=1000 * seed + i)
+                got = kernel.fused_paged_attention_cuda(
+                    q, kp, vp, pages, lengths, softcap=cap)
+                want = ref.fused_paged_attention_ref(
+                    q, kp, vp, pages, lengths, decode_attention, softcap=cap)
+                rel = relative_error(got, want)
+                abs_err = max(abs_err, float((got.float() - want.float())
+                                             .abs().max()))
+                ctx = (f"K4 {name} seed {seed} (B, kv, rep, hd, ps, mp) "
+                       f"{tuple(shape)} softcap {cap} lengths "
+                       f"{lengths.tolist()}")
+                if not rel <= ATTN_TOL[dtype]:
+                    raise AssertionError(f"{ctx}: relative error {rel!r} "
+                                         f"over {ATTN_TOL[dtype]}")
+                err[name] = max(err[name], rel)
+                if (lengths > 1).any():
+                    cut = kernel.fused_paged_attention_cuda(
+                        q, kp, vp, pages, lengths - (lengths > 1).int(),
+                        softcap=cap)
+                    fault[name].append(relative_error(cut, want))
+    fault = {name: {"min": min(fault[name]), "max": max(fault[name]),
+                    "caught": sum(f > ATTN_TOL[d] for f in fault[name]),
+                    "of": len(fault[name])} for d, name in names.items()}
+    for dtype, name in names.items():
+        if not fault[name]["caught"]:
+            raise AssertionError(f"the tolerance {ATTN_TOL[dtype]} misses a "
+                                 f"planted fault in {name}: {fault[name]}")
+    log(f"fused_paged_attention vs plain on the card: {len(PAGED_CASES)} "
+        f"cases x 2 dtypes x {len(PAGED_SEEDS)} seeds (trash-page and "
+        f"shared-page rows, lengths 1, ragged and full), max relative error "
+        f"{json.dumps(err)} within "
+        f"{json.dumps({names[d]: t for d, t in ATTN_TOL.items()})}; max "
+        f"|kernel - plain| {abs_err!r}; planted fault (last position cut "
+        f"off) relative error {json.dumps(fault)}")
+    return err, abs_err, fault
+
+
+# ----------------------------------------------------- paged serving runs
+def paged_requests(vocab: int) -> list[dict]:
+    """Run (b)'s requests as ``submit`` arguments: a shared system prompt
+    and a suffix each, from ``default_rng(1)``; the "hi" class and the
+    sampled requests by index."""
+    from repro_torch.serve import SamplingParams
+
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, vocab, PAGED_SYSTEM).tolist()
+    reqs = []
+    for i in range(PAGED_REQUESTS):
+        suffix = rng.integers(0, vocab, int(rng.integers(8, 97))).tolist()
+        reqs.append({
+            "prompt": system + suffix, "max_new_tokens": SERVE_MAX_NEW,
+            "sampling": (SamplingParams(temperature=0.8, top_k=5)
+                         if i in PAGED_STOCHASTIC else SamplingParams()),
+            "klass": "hi" if i in PAGED_HI else "default"})
+    return reqs
+
+
+def serve_paged(params, cfg, requests, backend: str, record: bool = False,
+                **paging):
+    """Serve ``requests`` (``submit`` arguments) on a paged engine.
+    Returns ``(engine, {uid: request}, wall seconds, gaps, launches)``,
+    the launches of K1-K4 in the run by wrapper name."""
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.serve import (PagingConfig, Request, SchedClass,
+                                   ServeConfig, ServeEngine)
+
+    classes = (SchedClass("default"), SchedClass("hi", priority=1))
+    eng = ServeEngine(params, cfg, ServeConfig(
+        cache_len=SERVE_CACHE, power_monitor=True, kernel_backend=backend,
+        paging=PagingConfig(page_size=PAGE, classes=classes, **paging)))
+    gaps = record_gaps(eng) if record else {}
+    for r in requests:
+        eng.submit(Request(**r))
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+               kz.fused_matmul_counters_cuda, kz.fused_paged_attention_cuda)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    done = {r.uid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    return (eng, done, time.perf_counter() - t0, gaps,
+            {fn.__name__: fn.launches for fn in counted})
+
+
+def check_paged(eng, done: dict, n: int, cfg, launches: int, kernels: bool,
+                what: str) -> None:
+    """What every paged run must give: all requests retired by length,
+    every page back in the free list or the prefix cache, retired
+    energies summing to the trace, and with the kernels K4 launched once
+    a layer a decode step, K2 at every decode matmul, K3 twice a sampled
+    step and K1 four times an admission (two sites, two edges); without
+    them, no kernel at all."""
+    check_served(done, cfg, n)
+    c = eng.cache
+    cached = len(eng.prefix) if eng.prefix is not None else 0
+    if c.n_live or c.n_free_pages + cached != c.num_pages - 1:
+        raise AssertionError(f"{what}: pages not conserved ({c.n_live} rows "
+                             f"in use, {c.n_free_pages} free, {cached} "
+                             f"cached of {c.num_pages - 1})")
+    rep = eng.trace_report()
+    for design in eng.accountant.mcfg.design_names:
+        assert_close(sum(s.energy(design) for s in rep.sites),
+                     sum(r.power.energy[design]["total"]
+                         for r in done.values()),
+                     f"{what}: retired {design} energies vs the trace")
+    steps = eng.stats["decode_steps"]
+    want = {"fused_counters_cuda": 4 * c.allocations,
+            "gated_row_matmul_cuda": (7 * cfg.n_layers + 1) * steps,
+            "fused_matmul_counters_cuda": 2 * steps,
+            "fused_paged_attention_cuda": cfg.n_layers * steps}
+    if not kernels:
+        want = dict.fromkeys(want, 0)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    st = eng.stats
+    log(f"{what}: {st['decode_steps']} decode steps, {st['tokens']} tokens; "
+        f"launches {json.dumps(launches)}; chunk_calls {st['chunk_calls']}, "
+        f"prefix_hit_requests {st['prefix_hit_requests']}, peak_admitted "
+        f"{st['peak_admitted']}, preemptions {st['preemptions']}; pages "
+        f"conserved ({c.n_free_pages} free + {cached} cached); retired "
+        f"energies sum to the trace (rtol 1e-6)")
+
+
+def phase_paged_serving(cfg, params, slot_eng, slot_done: dict) -> dict:
+    """The paged engine at the full width of Qwen1.5-0.5B: (a) with ample
+    pages it serves the slot run's requests with the slot engine's tokens
+    and energies; (b) at the slot run's memory (64 usable pages of 16) it
+    serves 16 requests with a shared system prompt through 8 rows with
+    chunked prefill, prefix sharing and two classes; (c) with 32 usable
+    pages it must preempt. Greedy tokens of (b) and (c) are held against
+    an uncontended run, and (b) against the same run with every plain
+    version."""
+    prompts, sampling = serving_requests(cfg.vocab)
+    slot_reqs = [{"prompt": p, "max_new_tokens": SERVE_MAX_NEW,
+                  "sampling": sp} for p, sp in zip(prompts, sampling)]
+    eng, done, wall, gaps, launched = serve_paged(
+        params, cfg, slot_reqs, "auto", record=True, num_pages=65,
+        max_rows=SERVE_SLOTS)
+    check_paged(eng, done, SERVE_REQUESTS, cfg, launched, True,
+                "paged run (a), ample pages")
+    equal = compare_runs(slot_done, done, gaps, SERVE_STOCHASTIC,
+                         "the paged run (a)")
+    if equal == SERVE_REQUESTS:
+        assert_reports_close(slot_eng, eng, "the paged run (a)'s")
+    log(f"paged run (a) against the slot engine: {equal} of "
+        f"{SERVE_REQUESTS} requests' tokens equal, {wall:.3f} s")
+    out = {"a": {"decode_steps": eng.stats["decode_steps"],
+                 "launches": launched["fused_paged_attention_cuda"],
+                 "equal": equal, "wall_s": wall}}
+
+    reqs = paged_requests(cfg.vocab)
+    base, base_done, _, base_gaps, launched = serve_paged(
+        params, cfg, reqs, "auto", record=True, num_pages=129,
+        max_rows=PAGED_ROWS)
+    check_paged(base, base_done, PAGED_REQUESTS, cfg, launched, True,
+                "uncontended paged run (128 usable pages)")
+    if base.stats["preemptions"]:
+        raise AssertionError("the uncontended run preempted")
+    runs = {}
+    for name, pages in (("b", 65), ("c", 33)):
+        eng, done, wall, _, launched = serve_paged(
+            params, cfg, reqs, "auto", num_pages=pages, max_rows=PAGED_ROWS,
+            prefill_chunk=64, prefix_cache=True)
+        what = f"paged run ({name}), {pages - 1} usable pages"
+        check_paged(eng, done, PAGED_REQUESTS, cfg, launched, True, what)
+        st = eng.stats
+        if not (st["chunk_calls"] > 0 and st["prefix_hit_requests"] > 0
+                and st["peak_admitted"] > SERVE_SLOTS):
+            raise AssertionError(f"{what}: no chunks, prefix hits or "
+                                 f"admitted concurrency over the slot "
+                                 f"engine's {SERVE_SLOTS}: {st}")
+        if name == "c" and not st["preemptions"] > 0:
+            raise AssertionError(f"{what}: nothing was preempted")
+        tokens = eng.stats["tokens"]
+        log(f"{what}: {wall:.3f} s, {tokens / wall:.1f} tok/s incl. prefill "
+            f"and accounting")
+        compare_runs(done, base_done, base_gaps, PAGED_STOCHASTIC,
+                     "the uncontended run", same_prefill=False)
+        runs[name] = (eng, done)
+        out[name] = {"wall_s": wall, "tokens": tokens,
+                     "launches": launched["fused_paged_attention_cuda"],
+                     "launches_all": launched,
+                     **{k: st[k] for k in ("decode_steps", "chunk_calls",
+                                           "prefix_hit_requests",
+                                           "peak_admitted", "preemptions")}}
+    eng, done = runs["b"]
+    ref_eng, ref_done, ref_wall, ref_gaps, launched = serve_paged(
+        params, cfg, reqs, "ref", record=True, num_pages=65,
+        max_rows=PAGED_ROWS, prefill_chunk=64, prefix_cache=True)
+    check_paged(ref_eng, ref_done, PAGED_REQUESTS, cfg, launched, False,
+                "paged run (b) with kernel_backend='ref'")
+    equal = compare_runs(done, ref_done, ref_gaps, PAGED_STOCHASTIC,
+                         "the plain paged run")
+    if equal == PAGED_REQUESTS:
+        assert_reports_close(eng, ref_eng, "the plain paged run's")
+    out["b_ref_wall_s"] = ref_wall
+    out["engine"] = eng
+    return out
+
 
 # ---------------------------------------------------------------- timing
 def time_ms(fn, reps: int) -> float:
@@ -762,12 +1066,43 @@ def phase_serving_timing(cfg, eng) -> dict:
     return out
 
 
-def phase_decode_profile(cfg, eng) -> dict:
-    """One warm decode step and one accountant step under
-    ``torch.profiler``: each kernel's own device time by name, and the
-    device's busy share of the profiled window (host clock)."""
+def profile_once(name: str, work) -> dict | None:
+    """One warm call of ``work`` under ``torch.profiler``: each kernel's
+    own device time by name, and the device's busy share of the profiled
+    window (host clock)."""
     from torch.profiler import ProfilerActivity, profile
 
+    work()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.setdefault(evt.name, []).append(
+                evt.time_range.elapsed_us())
+    if not kernels:
+        log(f"{name}: the profiler saw no device events; device time by "
+            f"kernel not measured")
+        return None
+    busy = sum(sum(v) for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:6]
+    log(f"{name} profiled: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({busy / wall_us * 100:.1f}%); "
+        + "; ".join(f"{k[:48]} x{len(v)} {sum(v) / 1e3:.4f} ms"
+                    for k, v in top))
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "kernels": {k[:60]: {"launches": len(v), "ms": sum(v) / 1e3}
+                        for k, v in top}}
+
+
+def phase_decode_profile(cfg, eng) -> dict:
+    """One warm slot decode step and one accountant step under
+    :func:`profile_once`."""
     from repro_torch.models import lm
 
     M = SERVE_SLOTS
@@ -786,34 +1121,103 @@ def phase_decode_profile(cfg, eng) -> dict:
                     eng.accountant.record_decode(
                         [], eng._embed(eng._embed_bf16, tokens)[:, 0], w,
                         site) for site, w in eng._power_weights])):
-            work()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                work()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            kernels: dict[str, list] = {}
-            for evt in prof.events():
-                if evt.device_type == torch.autograd.DeviceType.CUDA:
-                    kernels.setdefault(evt.name, []).append(
-                        evt.time_range.elapsed_us())
-            busy = sum(sum(v) for v in kernels.values())
-            if not kernels:
-                log(f"{name}: the profiler saw no device events; device "
-                    f"time by kernel not measured")
-                continue
-            top = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:6]
-            out[name] = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-                         "kernels": {k[:60]: {"launches": len(v),
-                                              "ms": sum(v) / 1e3}
-                                     for k, v in top}}
-            log(f"{name} profiled: wall {wall_us / 1e3:.3f} ms, device busy "
-                f"{busy / 1e3:.3f} ms ({busy / wall_us * 100:.1f}%); "
-                + "; ".join(f"{k[:48]} x{len(v)} {sum(v) / 1e3:.4f} ms"
-                            for k, v in top))
+            got = profile_once(name, work)
+            if got is not None:
+                out[name] = got
     return out
+
+
+def phase_paged_timing(cfg, eng, reqs) -> dict:
+    """K4 at the paged serving path's shapes: 8 rows whose lengths are
+    run (b)'s first 8 prompts plus 16 decoded tokens, sharing the 4
+    system-prompt pages, over 24 layers' pools of 129 pages (random
+    bfloat16). Device time per launch by the profiler beside the plain
+    version, the gather + ``scaled_dot_product_attention`` yardstick and
+    the bound; then the warm paged decode step on the host clock, with
+    each backend, and its profile."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.zvg_matmul import kernel, ref
+    from repro_torch.models import lm
+    from repro_torch.models.attention import decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, mp = PAGED_ROWS, SERVE_CACHE // PAGE
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lengths = [len(r["prompt"]) + 16 for r in reqs[:B]]
+    n_sys = PAGED_SYSTEM // PAGE
+    tables, nxt = [], 1 + n_sys
+    for n in lengths:
+        own = -(-n // PAGE) - n_sys
+        row = list(range(1, 1 + n_sys)) + list(range(nxt, nxt + own))
+        nxt += own
+        tables.append(row + [0] * (mp - len(row)))
+    pages = torch.tensor(tables, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    pools = [(torch.randn(129, PAGE, kv, hd, generator=gen, device="cuda"
+                          ).to(torch.bfloat16),
+              torch.randn(129, PAGE, kv, hd, generator=gen, device="cuda"
+                          ).to(torch.bfloat16)) for _ in range(cfg.n_layers)]
+    q = torch.randn(B, 1, h, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    mask = (torch.arange(mp * PAGE, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+
+    def yardstick(kp, vp):
+        k = ref.gather_pages(kp, pages).transpose(1, 2)
+        v = ref.gather_pages(vp, pages).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                              attn_mask=mask)
+
+    with torch.no_grad():
+        kern = [lambda p=p: kernel.fused_paged_attention_cuda(q, *p, pages,
+                                                              lens)
+                for p in pools]
+        t = {"ms": device_ms(kern),
+             "plain_ms": device_ms([lambda p=p: ref.fused_paged_attention_ref(
+                 q, *p, pages, lens, decode_attention) for p in pools]),
+             "yardstick_ms": device_ms([lambda p=p: yardstick(*p)
+                                        for p in pools]),
+             "events_ms": time_cycle(kern, 20),
+             "bytes_ms": paged_attention_bytes(pools[0][0], q, pages, lens)
+             / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": 4 * sum(lengths) * h * hd / ALU_OPS_PER_S * 1e3}
+        per_step = cfg.n_layers
+        bound = max(t["bytes_ms"], t["ops_ms"])
+        log(f"fused_paged_attention {B} rows x {h} heads x hd {hd}, lengths "
+            f"{lengths} (ps {PAGE}, bf16), device ms per launch: kernel "
+            f"{t['ms']:.5f}, plain {t['plain_ms']:.5f}, gather + sdpa "
+            f"{t['yardstick_ms']:.5f}, bound {bound:.6f}; kernel by CUDA "
+            f"events {t['events_ms']:.5f}; per decode step ({per_step} "
+            f"launches) kernel {t['ms'] * per_step:.4f} ms, bound "
+            f"{bound * per_step:.5f} ms")
+
+        W = eng.weights
+        tokens = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+        positions = (lens - 1).long()[:, None]
+        step_ms = {}
+        for backend in ("auto", "ref"):
+            decode = lm.make_decode_step(cfg, backend)
+            decode(W, pools, tokens, positions, pages)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                decode(W, pools, tokens, positions, pages)
+            torch.cuda.synchronize()
+            step_ms[backend] = (time.perf_counter() - t0) / 10 * 1e3
+        decode = lm.make_decode_step(cfg, "auto")
+        profiled = profile_once("paged decode step", lambda: decode(
+            W, pools, tokens, positions, pages))
+    t.update(launches_per_step=per_step, lengths=lengths,
+             shape={"B": B, "h": h, "kv": kv, "hd": hd, "ps": PAGE,
+                    "mp": mp, "dtype": "bfloat16"},
+             decode_step_ms=step_ms, tokens_per_s=B / step_ms["auto"] * 1e3,
+             profiled=profiled)
+    log(f"warm paged decode step ({B} rows, model only): "
+        f"{step_ms['auto']:.3f} ms with the kernels "
+        f"({t['tokens_per_s']:.1f} tok/s), {step_ms['ref']:.3f} ms with the "
+        f"plain versions")
+    return t
 
 
 def main() -> int:
@@ -823,6 +1227,7 @@ def main() -> int:
         return 1
     from repro_torch import design as D
     from repro_torch.kernels import _build
+    from repro_torch.kernels.zvg_matmul.cases import ATTN_TOL
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -841,6 +1246,7 @@ def main() -> int:
 
     err = phase_kernel_cases()
     err2, err3 = phase_decode_kernel_cases()
+    rel4, err4, fault4 = phase_paged_kernel_cases()
     designs = tuple(D.named_designs().values())
     layers, launches, _ = run_main_path("resnet50", designs, 54)
     sites, e = check_sites("resnet50", layers, designs)
@@ -848,7 +1254,8 @@ def main() -> int:
     mlayers, mlaunches, _ = run_main_path("mobilenet", designs, 28)
     _, e = check_sites("mobilenet", mlayers, designs)
     err = max(err, e)
-    cfg, eng, serve_launches = phase_serving()
+    cfg, params, eng, slot_done, serve_launches = phase_serving()
+    paged = phase_paged_serving(cfg, params, eng, slot_done)
 
     phase_breakdown("resnet50", designs)
     tot = phase_timing(sites)
@@ -859,6 +1266,7 @@ def main() -> int:
     st = phase_serving_timing(cfg, eng)
     k2, k3 = st["k2"], st["k3"]
     profiled = phase_decode_profile(cfg, eng)
+    k4 = phase_paged_timing(cfg, paged["engine"], paged_requests(cfg.vocab))
 
     def bound(t):
         return {"bound_ms": max(t["bytes_ms"], t["ops_ms"]),
@@ -915,6 +1323,34 @@ def main() -> int:
         "shape": k3["shape"],
         "accounting_step_ms": st["accounting_ms"],
         "profiled": profiled.get("accountant step"),
+    }, {
+        "name": "fused_paged_attention",
+        "route": "cuda",
+        "source": K4_SOURCE,
+        "replaces": K4_REPLACES,
+        "launches": paged["b"]["launches"],
+        "launches_runs": {k: paged[k]["launches"] for k in "abc"},
+        "decode_steps_runs": {k: paged[k]["decode_steps"] for k in "abc"},
+        "max_abs_err": err4,
+        "max_rel_err": rel4,
+        "rel_tol": {str(d).split(".")[-1]: v for d, v in ATTN_TOL.items()},
+        "planted_fault_rel_err": fault4,
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        **bound(k4),
+        "library_ms": None,
+        "yardstick_ms": k4["yardstick_ms"],
+        "yardstick": "gather_pages + F.scaled_dot_product_attention",
+        "events_ms": k4["events_ms"],
+        "ms_over": "one launch at the paged serving shape, device time "
+                   "(profiler); events_ms by CUDA events",
+        "launches_per_step": k4["launches_per_step"],
+        "shape": k4["shape"],
+        "lengths": k4["lengths"],
+        "paged_decode_step_ms": k4["decode_step_ms"],
+        "paged_tokens_per_s": k4["tokens_per_s"],
+        "profiled": k4["profiled"],
+        "paged_runs": {k: paged[k] for k in "abc"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

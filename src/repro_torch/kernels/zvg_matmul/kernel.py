@@ -1,12 +1,14 @@
-"""Wrappers of the Hopper decode-path kernels (``csrc/zvg_matmul.cu``).
+"""Wrappers of the Hopper decode-path kernels (``csrc/zvg_matmul.cu``,
+``csrc/paged_attention.cu``).
 
 ``gated_row_matmul_cuda`` replaces the TPU kernel
-``repro/kernels/zvg_matmul/fused.py::gated_row_matmul`` and
-``fused_matmul_counters_cuda`` replaces ``fused_matmul_counters``; the
-source's header says how, and what bounds each. The library is built
+``repro/kernels/zvg_matmul/fused.py::gated_row_matmul``,
+``fused_matmul_counters_cuda`` replaces ``fused_matmul_counters`` and
+``fused_paged_attention_cuda`` replaces ``fused_paged_attention``; each
+source's header says how, and what bounds each. The libraries are built
 with ``nvcc`` at first use and called through ``ctypes`` on PyTorch's
-current stream. Both raise on tensors the kernels do not take and never
-fall back to the plain versions.
+current stream. The wrappers raise on tensors the kernels do not take and
+never fall back to the plain versions.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.power_counters.kernel import spec_args
 from repro_torch.kernels.power_counters.spec import CounterSpec
 
-from .ref import check_operands
+from .ref import check_operands, check_paged_operands
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,6 +41,15 @@ def _functions():
     for fn in (gemm, fused):
         fn.restype = ctypes.c_int
     return gemm, fused
+
+
+@functools.cache
+def _attention():
+    fn = _build.load("paged_attention").pa_paged_decode_attention
+    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                   ctypes.c_float, ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_on_card(name: str, *tensors: torch.Tensor) -> None:
@@ -119,6 +130,45 @@ def fused_matmul_counters_cuda(a: torch.Tensor, w: torch.Tensor,
     return product, wc, wz, nc, nz
 
 
+def fused_paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, pages: torch.Tensor,
+                               lengths: torch.Tensor, *, scale=None,
+                               softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention of ``q [B, 1, h, hd]`` through the page tables
+    ``pages [B, MP]`` into the pools ``[P, ps, kv, hd]``, up to
+    ``lengths [B]`` positions a row, on the card; matches
+    :func:`.ref.fused_paged_attention_ref` within
+    :data:`.cases.ATTN_TOL` (float32 softmax and P.V throughout)."""
+    check_paged_operands(q, k_pool, v_pool, pages, lengths)
+    pages = pages.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    _check_on_card("fused_paged_attention_cuda", q, k_pool, v_pool, pages,
+                   lengths)
+    B, _, H, HD = q.shape
+    _, PS, KV, _ = k_pool.shape
+    if (H // KV > 8 or HD % 8 or not 8 <= HD <= 128 or B > 65535
+            or any(t.data_ptr() % 16 for t in (q, k_pool, v_pool))):
+        raise ValueError(f"unsupported paged attention shapes: q "
+                         f"{tuple(q.shape)}, pools {tuple(k_pool.shape)} "
+                         f"(hd a multiple of 8 up to 128, h / kv up to 8, "
+                         f"16-byte aligned)")
+    out = torch.empty_like(q)
+    scale = HD ** -0.5 if scale is None else scale
+    with torch.cuda.device(q.device):
+        err = _attention()(q.data_ptr(), k_pool.data_ptr(),
+                           v_pool.data_ptr(), out.data_ptr(),
+                           _DTYPE_CODE[q.dtype], pages.data_ptr(),
+                           lengths.data_ptr(), B, H, KV, HD, PS,
+                           pages.shape[1], float(scale), float(softcap),
+                           _stream(q.device))
+    if err:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_paged_attention_cuda.launches += 1
+    return out
+
+
 #: kernel launches so far; set them to 0 before a run to count that run's
 gated_row_matmul_cuda.launches = 0
 fused_matmul_counters_cuda.launches = 0
+fused_paged_attention_cuda.launches = 0

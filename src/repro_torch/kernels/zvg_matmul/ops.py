@@ -13,8 +13,10 @@ import torch
 from repro_torch.kernels.power_counters.ops import resolve_backend
 from repro_torch.kernels.power_counters.spec import CounterSpec
 
-from .kernel import fused_matmul_counters_cuda, gated_row_matmul_cuda
-from .ref import fused_matmul_counters_ref, gated_row_matmul_ref
+from .kernel import (fused_matmul_counters_cuda, fused_paged_attention_cuda,
+                     gated_row_matmul_cuda)
+from .ref import (fused_matmul_counters_ref, fused_paged_attention_ref,
+                  gated_row_matmul_ref)
 
 
 def gated_row_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -36,3 +38,18 @@ def fused_matmul_counters(a: torch.Tensor, w: torch.Tensor,
                                           lanes_w, cols)
     return fused_matmul_counters_ref(a, w, west_spec, north_spec, lanes_w,
                                      cols)
+
+
+def fused_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, pages: torch.Tensor,
+                          lengths: torch.Tensor, attend, *, scale=None,
+                          softcap: float = 0.0,
+                          backend: str | None = None) -> torch.Tensor:
+    """Paged decode attention, ``[B, 1, h, hd]`` in q's dtype: the kernel,
+    or the gather and the dense ``attend`` (see
+    :func:`.ref.fused_paged_attention_ref`)."""
+    if resolve_backend(backend, q.device) == "cuda":
+        return fused_paged_attention_cuda(q, k_pool, v_pool, pages, lengths,
+                                          scale=scale, softcap=softcap)
+    return fused_paged_attention_ref(q, k_pool, v_pool, pages, lengths,
+                                     attend, scale=scale, softcap=softcap)

@@ -3,9 +3,12 @@
 :func:`gated_row_matmul_ref` is ``torch.matmul`` with the row gate;
 :func:`fused_matmul_counters_ref` is that product plus the plain counter
 pass (:func:`repro_torch.kernels.power_counters.ref.fused_counters_ref`)
-over the same west and north word streams the kernel walks. The CPU runs
-them, the ``"ref"`` backend runs them on any device, and the card-side
-checks hold the kernels against them.
+over the same west and north word streams the kernel walks;
+:func:`fused_paged_attention_ref` gathers a dense view of each row's
+pages and runs the caller's dense decode attention on it. The CPU runs
+them, the
+``"ref"`` backend runs them on any device, and the card-side checks hold
+the kernels against them.
 """
 from __future__ import annotations
 
@@ -76,3 +79,57 @@ def fused_matmul_counters_ref(a: torch.Tensor, w: torch.Tensor,
     wc, wz = fused_counters_ref(x_w, west_spec)
     nc, nz = fused_counters_ref(pad_lanes(to_bits(w), lanes_n), north_spec)
     return product, wc, wz, nc, nz
+
+
+#: pool and query dtypes the paged attention kernel takes
+ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_paged_operands(q, k_pool, v_pool, pages, lengths) -> None:
+    """Raise on operands the paged decode attention does not take: ``q
+    [B, 1, h, hd]``, pools ``[P, ps, kv, hd]`` of q's dtype with ``kv``
+    dividing ``h``, ``pages [B, MP]`` and ``lengths [B]`` of integers."""
+    if q.dtype not in ATTN_DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise TypeError(f"q and the pools must share a dtype of "
+                        f"{ATTN_DTYPES}, got {q.dtype}, {k_pool.dtype}, "
+                        f"{v_pool.dtype}")
+    if (q.dim() != 4 or q.shape[1] != 1 or k_pool.dim() != 4
+            or v_pool.shape != k_pool.shape
+            or k_pool.shape[3] != q.shape[3]
+            or q.shape[2] % k_pool.shape[2]):
+        raise ValueError(f"expected q [B, 1, h, hd] and pools [P, ps, kv, "
+                         f"hd] with kv dividing h, got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    if (pages.dim() != 2 or pages.shape[0] != q.shape[0]
+            or lengths.shape != (q.shape[0],)
+            or pages.dtype.is_floating_point
+            or lengths.dtype.is_floating_point):
+        raise ValueError(f"expected integer pages [B, MP] and lengths [B] "
+                         f"for B = {q.shape[0]}, got {tuple(pages.shape)} "
+                         f"{pages.dtype}, {tuple(lengths.shape)} "
+                         f"{lengths.dtype}")
+
+
+def gather_pages(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """Dense per-row logical view of a page pool: ``pool [P, ps, ...]``
+    and page tables ``pages [B, MP]`` give ``[B, MP * ps, ...]``. Table
+    entries not yet allocated point at the trash page 0; what they hold
+    sits at positions past the row's writes, which every caller masks."""
+    b, mp = pages.shape
+    view = pool[pages]                                  # [B, MP, ps, ...]
+    return view.reshape((b, mp * pool.shape[1]) + pool.shape[2:])
+
+
+def fused_paged_attention_ref(q, k_pool, v_pool, pages, lengths, attend, *,
+                              scale=None, softcap: float = 0.0):
+    """Decode attention through page tables: ``q [B, 1, h, hd]`` against
+    the pools ``[P, ps, kv, hd]``, row ``b`` over the pages ``pages[b]``
+    up to ``lengths[b]`` positions. The gather, then ``attend(q, k_cache,
+    v_cache, lengths, scale=, softcap=)``, the model's dense decode
+    attention (:func:`repro_torch.models.attention.decode_attention`:
+    float32 scores, probabilities cast to q's dtype before they meet V),
+    which the kernel computes in one pass."""
+    check_paged_operands(q, k_pool, v_pool, pages, lengths)
+    return attend(q, gather_pages(k_pool, pages), gather_pages(v_pool, pages),
+                  lengths, scale=scale, softcap=softcap)

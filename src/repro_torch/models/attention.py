@@ -1,5 +1,8 @@
 """Grouped-query attention: the causal prefill attention (online softmax
-over KV blocks) and single-token decode against a KV cache.
+over KV blocks), single-token decode against a KV cache, and the
+multi-token causal attention of a chunked prefill over a row's paged
+history (gathered by :func:`repro_torch.kernels.zvg_matmul.ref.
+gather_pages`).
 
 GQA is computed in grouped form -- q reshaped to ``[B, S, Hkv, rep, D]``
 and contracted against the un-repeated K/V. Scores are float32; the
@@ -79,3 +82,26 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
     return out.reshape(b, 1, h, v_cache.shape[-1])
+
+
+def paged_chunk_attention(q, k_cache, v_cache, positions_q, *, scale=None,
+                          softcap: float = 0.0):
+    """Multi-token causal attention of a paged prefill chunk: ``q [B, C,
+    H, D]`` against gathered caches ``[B, Smax, Hkv, D]``. Query ``i``
+    sits at absolute position ``positions_q[b, i]`` and attends to cache
+    positions at or before it; the chunk's own keys were written to the
+    pool before the gather, so one mask covers the chunk and the history.
+    Negative positions mark right padding: their rows are fully masked
+    (finite junk that no caller reads)."""
+    b, sq, h, d = q.shape
+    hkv = k_cache.shape[2]
+    qg = _group_q(q, hkv)
+    scale = scale if scale is not None else d ** -0.5
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache).float() * scale
+    scores = _softcap(scores, softcap)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = kpos[None, None, :] <= positions_q[:, :, None]   # [B, C, Smax]
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
+    return out.reshape(b, sq, h, v_cache.shape[-1])

@@ -1,6 +1,6 @@
 """Language-model wrapper: weights, embeddings, the output head, and the
-step builders the serving engine runs (slot prefill, embedding for the
-power accountant, decode).
+step builders the serving engine runs (slot prefill, paged chunk
+prefill, embedding for the power accountant, decode).
 
 Two weight trees: ``params``, the float32 masters (:func:`init_model`,
 or :func:`repro_torch.models.convert.params_from_jax`), which the power
@@ -75,11 +75,13 @@ def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
 
 
 def _forward(weights: dict, cfg: ArchConfig, tokens, positions=None, *,
-             states=None, prefill=False, cache_len=0, backend=None):
+             states=None, prefill=False, cache_len=0, pages=None,
+             backend=None):
     x, positions = embed_inputs(weights["embed"], cfg, tokens, positions)
     x, states = T.apply_stack(weights["layers"], x, cfg, positions=positions,
                               states=states, prefill=prefill,
-                              cache_len=cache_len, backend=backend)
+                              cache_len=cache_len, pages=pages,
+                              backend=backend)
     return L.rms_norm(x, weights["final_norm"]["scale"]), states
 
 
@@ -87,7 +89,9 @@ def _forward(weights: dict, cfg: ArchConfig, tokens, positions=None, *,
 def make_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       dtype: torch.dtype, device) -> list:
     """Zeroed per-layer ``(k_cache, v_cache)`` decode states, each
-    ``[batch, cache_len, Hkv, D]``."""
+    ``[batch, cache_len, Hkv, D]``. The paged engine's page pools are the
+    same call with ``batch = num_pages`` and ``cache_len = page_size``:
+    ``[P, ps, Hkv, D]`` per layer."""
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
@@ -108,6 +112,27 @@ def make_slot_prefill_step(cfg: ArchConfig, cache_len: int):
     return slot_prefill_step
 
 
+def make_chunk_prefill_step(cfg: ArchConfig):
+    """``(weights, pools, tokens [1, C], positions [1, C], pages [1, MP],
+    length, start) -> logits [1, V]``: one chunk of a paged prefill at
+    the absolute positions ``start..`` (given on the host too, so no step
+    reads the device back). The chunk's K/V go into the row's pages (in
+    place) and its attention reads the paged history -- earlier chunks
+    and shared prefix pages. Right padding in the last chunk has position
+    -1: its writes go to the trash page and its queries are fully masked.
+    The logits are taken at the absolute position ``length - 1`` and mean
+    something only on the chunk that holds it (the last). Matmuls take
+    the plain path, as prefill's do."""
+    def chunk_prefill_step(weights, states, tokens, positions, pages,
+                           length: int, start: int):
+        h, _ = _forward(weights, cfg, tokens, positions, states=states,
+                        pages=pages)
+        idx = min(max(length - 1 - start, 0), h.shape[1] - 1)
+        return logits_fn(weights, cfg, h[:, idx])
+
+    return chunk_prefill_step
+
+
 def make_embed_step(cfg: ArchConfig):
     """``(embed_bf16, tokens [B, S]) -> x [B, S, D]``: the operand the
     power accountant streams is the embedded input in bfloat16, whatever
@@ -119,14 +144,16 @@ def make_embed_step(cfg: ArchConfig):
 
 
 def make_decode_step(cfg: ArchConfig, backend: str | None = "auto"):
-    """``(weights, states, tokens [B, 1], positions [B, 1]) -> logits
-    [B, V]``, the states updated in place. Every projection, MLP and
-    lm-head matmul goes through ``backend`` (K2 on the card)."""
+    """``(weights, states, tokens [B, 1], positions [B, 1], pages=None)
+    -> logits [B, V]``, the states updated in place. Every projection, MLP
+    and lm-head matmul goes through ``backend`` (K2 on the card); with the
+    page tables ``pages [B, MP]`` the states are page pools and the
+    attention is the paged decode attention (K4 on the card)."""
     mm.check_backend(backend)
 
-    def decode_step(weights, states, tokens, positions):
+    def decode_step(weights, states, tokens, positions, pages=None):
         h, _ = _forward(weights, cfg, tokens, positions, states=states,
-                        backend=backend)
+                        pages=pages, backend=backend)
         return logits_fn(weights, cfg, h[:, -1], backend)
 
     return decode_step

@@ -14,6 +14,12 @@ Modes (one code path each, shared weights):
              co-batch requests sitting at different positions. The port
              writes the caches in place (the JAX package returns new
              arrays that XLA aliases to the donated ones).
+  paged   -- ``pages [B, MP]`` given: the states are page pools ``[P,
+             ps, Hkv, D]``; each row writes this step's keys and values
+             into its pages through its table (in place), then attends
+             through the table: S = 1 by the paged decode attention (K4
+             on the card), a prefill chunk (S > 1) by the gather and
+             :func:`.attention.paged_chunk_attention`.
 
 Projection weights keep the names ``wq``/``wk``/``wv``/``wo``: the power
 accountant's site names come from them.
@@ -21,6 +27,9 @@ accountant's site names come from them.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.zvg_matmul import fused_paged_attention
+from repro_torch.kernels.zvg_matmul.ref import gather_pages
 
 from . import attention as A
 from . import layers as L
@@ -55,14 +64,31 @@ def make_block(cfg: ArchConfig, gen: torch.Generator) -> dict:
                               gated=cfg.mlp_gated)}
 
 
+# ------------------------------------------------------------------ paging
+def _page_targets(pages: torch.Tensor, positions: torch.Tensor,
+                  page_size: int):
+    """Physical ``(page, offset)`` write targets, each ``[B, S]``, of the
+    logical ``positions [B, S]`` through the tables ``pages [B, MP]``.
+    Negative positions (the right-padding mark of a chunk) and positions
+    past the table go to the trash page 0, so one scatter serves live
+    rows, dead rows (all-trash tables) and padded chunk tails."""
+    mp = pages.shape[1]
+    pos = positions.long()
+    pg = torch.gather(pages.long(), 1,
+                      torch.clamp(pos // page_size, 0, mp - 1))
+    ok = (pos >= 0) & (pos < mp * page_size)
+    return torch.where(ok, pg, 0), torch.clamp_min(pos, 0) % page_size
+
+
 # --------------------------------------------------------------- attention
 def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, state=None,
                     prefill: bool = False, cache_len: int = 0,
+                    pages: torch.Tensor | None = None,
                     backend: str | None = None):
     """Attention of one block. Returns ``(out, state)``: the decode
-    state updated in place, the prefill state padded to ``cache_len``,
-    or ``None``."""
+    state or the page pools updated in place, the prefill state padded to
+    ``cache_len``, or ``None``."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     scale = cfg.attn_scale or None
@@ -78,6 +104,24 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     v = proj("wv", "bv", kv)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+
+    if state is not None and pages is not None:   # ---- paged decode/chunk
+        kp, vp = state                            # [P, ps, kv, hd] pools
+        pg, off = _page_targets(pages, positions, kp.shape[1])
+        kp[pg, off] = k.to(kp.dtype)
+        vp[pg, off] = v.to(vp.dtype)
+        if s == 1:
+            # a chunk of one token runs the plain version, as prefill does
+            out = fused_paged_attention(
+                q.contiguous(), kp, vp, pages, positions[:, 0] + 1,
+                A.decode_attention, scale=scale, softcap=cfg.attn_softcap,
+                backend=backend or "ref")
+        else:
+            out = A.paged_chunk_attention(
+                q, gather_pages(kp, pages), gather_pages(vp, pages),
+                positions, scale=scale, softcap=cfg.attn_softcap)
+        out = mm.matmul(out.reshape(b, s, h * hd), p["wo"], backend)
+        return out, (kp, vp)
 
     if state is not None:                       # ---- single-token decode
         kc, vc = state
@@ -104,11 +148,13 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 # -------------------------------------------------------------------- block
 def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
                 positions: torch.Tensor, state=None, prefill: bool = False,
-                cache_len: int = 0, backend: str | None = None):
+                cache_len: int = 0, pages: torch.Tensor | None = None,
+                backend: str | None = None):
     h = L.rms_norm(x, p["norm1"]["scale"])
     out, new_state = apply_attention(p["mixer"], h, cfg, positions=positions,
                                      state=state, prefill=prefill,
-                                     cache_len=cache_len, backend=backend)
+                                     cache_len=cache_len, pages=pages,
+                                     backend=backend)
     x = x + cfg.resid_mult * out
     h = L.rms_norm(x, p["norm2"]["scale"])
     x = x + cfg.resid_mult * L.apply_mlp(p["ffn"], h, cfg.act, backend)
@@ -119,15 +165,17 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
                 positions: torch.Tensor, states: list | None = None,
                 prefill: bool = False, cache_len: int = 0,
+                pages: torch.Tensor | None = None,
                 backend: str | None = None):
     """Run every layer. Returns ``(x, states)``: the per-layer states for
-    decode (updated in place) and prefill, else ``None``."""
+    decode and paged steps (updated in place) and prefill, else
+    ``None``."""
     new_states = [] if (states is not None or prefill) else None
     for i, p in enumerate(layers):
         x, st = apply_block(p, x, cfg, positions=positions,
                             state=None if states is None else states[i],
                             prefill=prefill, cache_len=cache_len,
-                            backend=backend)
+                            pages=pages, backend=backend)
         if new_states is not None:
             new_states.append(st)
     return x, new_states

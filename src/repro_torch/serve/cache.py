@@ -92,7 +92,7 @@ class SlotCache:
                 f"slot {slot} position {self.positions[slot]} overflowed "
                 f"cache_len {self.cache_len}")
 
-    def decode_inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def decode_inputs(self) -> tuple[torch.Tensor, ...]:
         """``(tokens [B, 1], positions [B, 1])`` for one shared decode
         step; dead rows feed token 0 at position 0."""
         return (torch.from_numpy(self.tokens[:, None]).to(self.device),

@@ -29,6 +29,11 @@ a :class:`RequestPowerReport`.
 Hopper kernels for CUDA tensors, their plain versions on the CPU),
 ``"cuda"``, or ``"ref"`` (the plain versions on any device). The engine
 runs on ``ServeConfig.device``, the card by default.
+
+With ``ServeConfig.paging`` set, ``ServeEngine(...)`` returns a
+:class:`repro_torch.serve.paging.engine.PagedServeEngine`, which keeps
+this step loop and overrides the hooks ``_build_state``,
+``_admission_phase``, ``_decode_ready`` and ``_release_slot``.
 """
 from __future__ import annotations
 
@@ -62,9 +67,11 @@ class ServeConfig:
     power_sample_every: int = 1   # stream every k-th decode step
     kernel_backend: str = "auto"  # "auto" | "cuda" | "ref" (module doc)
     device: str = "cuda"
-    # not ported yet: the paged engine (ROADMAP step 10) and telemetry
-    # (step 11); ServeEngine refuses a config that sets them
+    # the paged KV cache (a paging.PagingConfig); None = slot cache. When
+    # set, max_slots gives way to paging.max_rows and cache_len is the
+    # per-request position horizon, not a per-request reservation
     paging: object | None = None
+    # not ported yet: telemetry (ROADMAP step 11); ServeEngine refuses it
     telemetry: object | None = None
 
     def __post_init__(self):
@@ -95,36 +102,39 @@ class ServeEngine:
     package); the engine moves them to ``scfg.device``.
     """
 
+    def __new__(cls, params=None, cfg=None, scfg=None, mesh=None):
+        if cls is ServeEngine and scfg is not None and scfg.paging is not None:
+            from .paging.engine import PagedServeEngine
+            return super().__new__(PagedServeEngine)
+        return super().__new__(cls)
+
     def __init__(self, params: dict, cfg: ArchConfig, scfg: ServeConfig,
                  mesh=None):
         missing = [name for name, v in (("mesh", mesh),
-                                        ("paging", scfg.paging),
                                         ("telemetry", scfg.telemetry))
                    if v is not None]
         if missing:
             raise NotImplementedError(
-                f"{', '.join(missing)} not ported yet: the port serves "
-                f"with the slot engine on one device (ROADMAP steps 10, "
-                f"11 and 13)")
+                f"{', '.join(missing)} not ported yet: the port serves on "
+                f"one device without telemetry (ROADMAP steps 11 and 13)")
         self.cfg = cfg
         self.scfg = scfg
         self.device = torch.device(scfg.device)
-        dtype = lm.compute_dtype(cfg)
+        self.dtype = lm.compute_dtype(cfg)
         self.params = _to(params, self.device)
         self.weights = lm.compute_weights(self.params, cfg)
         # the accountant streams bfloat16 embeddings whatever the compute
         # dtype (the JAX package's embed step)
-        self._embed_bf16 = (self.weights["embed"] if dtype == torch.bfloat16
+        self._embed_bf16 = (self.weights["embed"]
+                            if self.dtype == torch.bfloat16
                             else self.params["embed"].to(torch.bfloat16))
-        self.cache = SlotCache(cfg, scfg.max_slots, scfg.cache_len, dtype,
-                               self.device)
-        self.scheduler = FIFOScheduler(scfg.cache_len)
+        self._build_state()        # cache + scheduler (paged overrides)
         self._prefill = lm.make_slot_prefill_step(cfg, scfg.cache_len)
         self._decode = lm.make_decode_step(cfg, scfg.kernel_backend)
         self._embed = lm.make_embed_step(cfg)
         self._running: dict[int, Request] = {}
-        self._temp = np.zeros(scfg.max_slots, np.float32)
-        self._topk = np.zeros(scfg.max_slots, np.int64)
+        self._temp = np.zeros(self._batch, np.float32)
+        self._topk = np.zeros(self._batch, np.int64)
         self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         self.accountant = (PowerAccountant(scfg.monitor,
                                            scfg.power_sample_every,
@@ -134,6 +144,13 @@ class ServeEngine:
                                if scfg.power_monitor else [])
         self.stats = {"steps": 0, "decode_steps": 0, "tokens": 0,
                       "occupancy_sum": 0, "peak_live": 0}
+
+    def _build_state(self) -> None:
+        """Cache, scheduler and decode batch width (subclass hook)."""
+        self._batch = self.scfg.max_slots
+        self.cache = SlotCache(self.cfg, self.scfg.max_slots,
+                               self.scfg.cache_len, self.dtype, self.device)
+        self.scheduler = FIFOScheduler(self.scfg.cache_len)
 
     # -------------------------------------------------------------- submit
     def submit(self, req: Request | list[int], **kw) -> Request:
@@ -156,20 +173,16 @@ class ServeEngine:
         """One engine iteration: admit, one shared decode, retire.
         Returns the requests retired during this step."""
         retired: list[Request] = []
-        while self.cache.n_free and self.scheduler.n_pending:
-            req = self.scheduler.pop_admissible(1)[0]
-            self._admit(req)
-            self._maybe_retire(req, retired)   # max_new == 1 / prompt EOS
-        live = self.cache.live_slots()
+        self._admission_phase(retired)
+        live = self._decode_ready()
         if live:
-            tokens, positions = self.cache.decode_inputs()
+            inputs = self.cache.decode_inputs()
             if self.accountant is not None and self.accountant.tick(live):
-                x = self._embed(self._embed_bf16, tokens)[:, 0]
+                x = self._embed(self._embed_bf16, inputs[0])[:, 0]
                 for site, w in self._power_weights:
                     self.accountant.record_decode(live, x, w, site)
                 self.accountant.mark_sampled(live)
-            logits = self._decode(self.weights, self.cache.states, tokens,
-                                  positions)
+            logits = self._decode(self.weights, self.cache.states, *inputs)
             toks = self._sample(logits, self._temp, self._topk).tolist()
             for slot in live:
                 req = self._running[slot]
@@ -182,6 +195,18 @@ class ServeEngine:
             self.stats["peak_live"] = max(self.stats["peak_live"], len(live))
         self.stats["steps"] += 1
         return retired
+
+    def _admission_phase(self, retired: list[Request]) -> None:
+        while self.cache.n_free and self.scheduler.n_pending:
+            req = self.scheduler.pop_admissible(1)[0]
+            self._admit(req)
+            self._maybe_retire(req, retired)   # max_new == 1 / prompt EOS
+
+    def _decode_ready(self) -> list[int]:
+        """Rows entering this step's shared decode (the paged engine first
+        backs every row's next write with a page here, which may
+        preempt)."""
+        return self.cache.live_slots()
 
     def run(self, max_steps: int = 0) -> list[Request]:
         """Pump :meth:`step` until queue and slots drain (or max_steps)."""
@@ -211,40 +236,62 @@ class ServeEngine:
             bucket *= 2
         return min(bucket, self.scfg.cache_len - 1)
 
+    def _padded_tokens(self, seq: list[int]) -> torch.Tensor:
+        """``seq`` right-padded with token 0 to its bucket, ``[1, S]`` on
+        the engine's device."""
+        bucket = max(self._bucket(len(seq)), len(seq))
+        toks = torch.zeros((1, bucket), dtype=torch.int64)
+        toks[0, :len(seq)] = torch.tensor(seq)
+        return toks.to(self.device)
+
     def _admit(self, req: Request) -> None:
         slot = self.cache.allocate()
         req.slot = slot
         req.status = RequestStatus.RUNNING
         req.start_step = self.stats["steps"]
         length = req.prompt_len
-        bucket = max(self._bucket(length), length)
-        toks = torch.zeros((1, bucket), dtype=torch.int64)
-        toks[0, :length] = torch.tensor(req.prompt)
-        toks = toks.to(self.device)
+        toks = self._padded_tokens(req.prompt)
         logits, states1 = self._prefill(self.weights, toks, length)
-        self._temp[slot] = req.sampling.temperature
-        self._topk[slot] = req.sampling.top_k
-        first = int(self._sample(logits, self._temp[slot:slot + 1],
-                                 self._topk[slot:slot + 1])[0])
+        first = self._sample_first(req, logits)
         self.cache.write_prefill(slot, states1, first, length)
         req.generated.append(first)
         self.stats["tokens"] += 1
         self._running[slot] = req
         if self.accountant is not None:
             self.accountant.begin(slot, req.uid, length)
-            x = self._embed(self._embed_bf16, toks)[:, :length]
-            for site, w in self._power_weights:
-                self.accountant.record_prefill(slot, x, w, site)
+            self._record_prefill_power(slot, toks, 0, length)
+
+    def _sample_first(self, req: Request, logits) -> int:
+        """Install the request's sampling parameters on its slot and draw
+        its first token from the batch-1 prefill logits."""
+        slot = req.slot
+        self._temp[slot] = req.sampling.temperature
+        self._topk[slot] = req.sampling.top_k
+        return int(self._sample(logits, self._temp[slot:slot + 1],
+                                self._topk[slot:slot + 1])[0])
+
+    def _record_prefill_power(self, slot: int, toks: torch.Tensor, lo: int,
+                              length: int) -> None:
+        """Stream the prompt rows ``[lo, length)`` of the padded tokens
+        through the monitored sites. ``lo > 0`` is a prefix reuser, which
+        pays only for the suffix it computed (the first payer keeps the
+        shared pages' energy)."""
+        x = self._embed(self._embed_bf16, toks)[:, lo:length]
+        for site, w in self._power_weights:
+            self.accountant.record_prefill(slot, x, w, site)
 
     def _maybe_retire(self, req: Request, retired: list[Request]) -> None:
         reason = self.scheduler.retire_reason(
             req, int(self.cache.positions[req.slot]), self.scfg.eos_id)
-        if not reason:
-            return
+        if reason:
+            self._retire(req, reason, retired)
+
+    def _retire(self, req: Request, reason: str,
+                retired: list[Request]) -> None:
         slot = req.slot
         if self.accountant is not None:
             req.power = self.accountant.finish(slot, len(req.generated))
-        self.cache.release(slot)
+        self._release_slot(slot)
         self._temp[slot] = 0.0
         self._topk[slot] = 0
         self._running.pop(slot)
@@ -253,9 +300,12 @@ class ServeEngine:
         req.finish_step = self.stats["steps"]
         retired.append(req)
 
+    def _release_slot(self, slot: int) -> None:
+        self.cache.release(slot)
+
     def cancel(self, uid: int) -> bool:
         """Drop a request that has not been admitted yet (the slot cache
-        never evicts running work)."""
+        never evicts running work; the paged engine cancels anywhere)."""
         return self.scheduler.cancel(uid)
 
     # -------------------------------------------------------------- views

@@ -253,6 +253,21 @@ class PowerAccountant:
     def begin(self, slot: int, uid: int, prompt_tokens: int) -> None:
         self._slots[slot] = _SlotAcc(uid, prompt_tokens)
 
+    def suspend(self, slot: int) -> _SlotAcc:
+        """Detach a preempted request's accumulator without booking it:
+        nothing reaches the serve-wide capture until the request retires,
+        so preemption neither counts twice nor loses energy. Hand it back
+        with :meth:`resume` at re-admission."""
+        return self._slots.pop(slot)
+
+    def resume(self, slot: int, acc: _SlotAcc) -> None:
+        """Re-attach a suspended accumulator to the request's new slot;
+        the re-prefill of prompt and generated tokens then adds to its
+        sums (recomputed K/V is energy spent)."""
+        if slot in self._slots:
+            raise RuntimeError(f"slot {slot} already accounted")
+        self._slots[slot] = acc
+
     def finish(self, slot: int, new_tokens: int) -> RequestPowerReport:
         """Freeze the slot's sums into a report AND book the same frozen,
         extrapolated per-site counters into the serve-wide capture."""
@@ -260,7 +275,8 @@ class PowerAccountant:
 
     def finish_detached(self, acc: _SlotAcc,
                         new_tokens: int) -> RequestPowerReport:
-        """Freeze an accumulator directly (the one retirement path)."""
+        """Freeze an accumulator directly: the one retirement path, also
+        for a request cancelled while preempted (real energy, no slot)."""
         scale = acc.decode_steps / max(acc.sampled_steps, 1)
         total: dict[str, float] = {}
         zf_sum = zf_n = 0.0

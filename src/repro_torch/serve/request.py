@@ -3,8 +3,9 @@
 A :class:`Request` is the unit of work: a prompt, a token budget,
 sampling parameters, and -- once retired -- the generated tokens plus an
 optional per-request streaming-power report. Lifecycle: QUEUED ->
-RUNNING (admitted into a KV-cache slot, prefill done) -> FINISHED (EOS,
-token budget, cache horizon, or cancelled while queued). The engine never
+RUNNING (admitted into a KV-cache slot or page-table row) -> FINISHED
+(EOS, token budget, cache horizon, or cancelled). The paged engine may
+send a RUNNING request back to QUEUED when it preempts it. The engine never
 changes a request after retirement.
 """
 from __future__ import annotations
@@ -30,6 +31,8 @@ class Request:
     max_new_tokens: int = 16
     sampling: SamplingParams = SamplingParams()
     uid: int = -1
+    klass: str = "default"         # scheduling class (the paged engine's;
+                                   # the slot engine's FIFO ignores it)
 
     # ---- engine-owned state --------------------------------------------
     status: RequestStatus = RequestStatus.QUEUED
@@ -39,6 +42,8 @@ class Request:
     submit_step: int = -1          # engine step counters: queueing delay
     start_step: int = -1           # is start_step - submit_step
     finish_step: int = -1
+    preemptions: int = 0           # times evicted under page pressure and
+                                   # re-queued (paged engine only)
     power: "object | None" = None  # RequestPowerReport when accounting is on
 
     @property

@@ -41,17 +41,27 @@ class FIFOScheduler:
                 f"({req.prompt_len} prompt + {req.max_new_tokens} new) but "
                 f"cache_len is {self.cache_len}")
 
+    def _enqueue(self, req: Request) -> None:
+        self.pending.append(req)
+
     def submit(self, req: Request) -> Request:
         self.validate(req)
         req.uid = self._next_uid
         self._next_uid += 1
         req.status = RequestStatus.QUEUED
-        self.pending.append(req)
+        self._enqueue(req)
         return req
 
     @property
     def n_pending(self) -> int:
         return len(self.pending)
+
+    def find(self, uid: int) -> Request | None:
+        """The queued request with this uid, if any."""
+        for req in self.pending:
+            if req.uid == uid:
+                return req
+        return None
 
     def cancel(self, uid: int) -> bool:
         """Drop a still-queued request (False when unknown or already

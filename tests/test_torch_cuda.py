@@ -7,7 +7,11 @@ present; run this tier on a GPU machine with
 Integer counters must be bitwise equal; decode products (K2, K3) of the
 kernel and of the plain version lie within ``PRODUCT_TOL`` of the float32
 product (the rule ``chip_smoke.py`` states), and gated rows are
-bit-equal. This file imports no JAX: the GPU machine need not have it.
+bit-equal; the paged decode attention (K4) lies within ``ATTN_TOL`` of
+its plain version, relative to the output's largest magnitude, over the
+case list ``chip_smoke.py`` holds it to (both from
+``repro_torch.kernels.zvg_matmul.cases``). This file imports no JAX: the
+GPU machine need not have it.
 """
 import pytest
 import torch
@@ -19,6 +23,9 @@ from repro_torch.kernels.power_counters import kernel as k1
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
 from repro_torch.kernels.zvg_matmul import kernel as kz
 from repro_torch.kernels.zvg_matmul import ref as zref
+from repro_torch.kernels.zvg_matmul.cases import (ATTN_TOL, PAGED_CASES,
+                                                  paged_case, relative_error)
+from repro_torch.models.attention import decode_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +233,74 @@ def test_serve_engine_on_the_card_kernels_equal_plain(cuda):
             assert r.generated == runs[1][uid].generated
         if r.generated == runs[1][uid].generated:
             assert r.power.energy == runs[1][uid].power.energy
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", PAGED_CASES,
+                         ids=["B{}-kv{}-rep{}-hd{}-ps{}-mp{}-cap{}".format(*c)
+                              for c in PAGED_CASES])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
+    *shape, softcap = case
+    q, kp, vp, pages, lengths = paged_case(*shape, dtype, seed=sum(shape))
+    before = kz.fused_paged_attention_cuda.launches
+    got = kz.fused_paged_attention_cuda(q, kp, vp, pages, lengths,
+                                        softcap=softcap)
+    assert kz.fused_paged_attention_cuda.launches == before + 1
+    want = zref.fused_paged_attention_ref(q, kp, vp, pages, lengths,
+                                          decode_attention, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert relative_error(got, want) <= ATTN_TOL[dtype]
+
+
+def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, kp, vp, pages, lengths = paged_case(2, 1, 2, 16, 8, 2,
+                                           torch.float32, seed=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kz.fused_paged_attention_cuda(q, kp.cpu(), vp, pages, lengths)
+    with pytest.raises(ValueError, match="unsupported"):
+        kz.fused_paged_attention_cuda(q[..., :12].contiguous(),
+                                      kp[..., :12].contiguous(),
+                                      vp[..., :12].contiguous(), pages,
+                                      lengths)
+    with pytest.raises(ValueError, match="unsupported"):
+        kz.fused_paged_attention_cuda(q.repeat(1, 1, 5, 1), kp, vp, pages,
+                                      lengths)
+    with pytest.raises(TypeError, match="share a dtype"):
+        kz.fused_paged_attention_cuda(q.bfloat16(), kp, vp, pages, lengths)
+
+
+def test_paged_engine_on_the_card_kernels_equal_plain(cuda):
+    """Smoke-size paged serving on the card, chunked prefill and shared
+    prefixes on: K4 runs once a layer a decode step, and the kernels'
+    run and the plain versions' run give equal greedy tokens and
+    bitwise-equal energies."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    from repro_torch.serve import PagingConfig, ServeConfig, ServeEngine
+
+    cfg = SMOKES["qwen1.5-0.5b"].with_(compute_dtype="float32")
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator().manual_seed(2)
+    system = torch.randint(0, cfg.vocab, (16,), generator=g).tolist()
+    prompts = [system + torch.randint(0, cfg.vocab, (int(n),),
+                                      generator=g).tolist()
+               for n in torch.randint(2, 20, (6,), generator=g)]
+    runs = []
+    for backend in ("auto", "ref"):
+        eng = ServeEngine(params, cfg, ServeConfig(
+            cache_len=48, power_monitor=True, kernel_backend=backend,
+            paging=PagingConfig(page_size=8, num_pages=16, max_rows=3,
+                                prefill_chunk=8, prefix_cache=True)))
+        before = kz.fused_paged_attention_cuda.launches
+        for p in prompts:
+            eng.submit(p, max_new_tokens=5)
+        runs.append({r.uid: r for r in eng.run()})
+        launched = kz.fused_paged_attention_cuda.launches - before
+        assert launched == (eng.stats["decode_steps"] * cfg.n_layers
+                            if backend == "auto" else 0)
+        assert eng.stats["chunk_calls"] and eng.stats["prefix_hit_requests"]
+    for uid, r in runs[0].items():
+        assert r.generated == runs[1][uid].generated
+        assert r.power.energy == runs[1][uid].power.energy

@@ -32,8 +32,8 @@ from repro_torch.configs import SMOKES
 from repro_torch.core import monitor
 from repro_torch.kernels.zvg_matmul import kernel as kz
 from repro_torch.models import convert
-from repro_torch.serve import (SamplingParams, ServeConfig, ServeEngine,
-                               power)
+from repro_torch.serve import (PagedServeEngine, PagingConfig,
+                               SamplingParams, ServeConfig, ServeEngine, power)
 
 ARCH = "qwen1.5-0.5b"
 CACHE_LEN = 48
@@ -238,9 +238,10 @@ def test_cpu_run_launches_no_kernel_and_config_is_checked(model):
     assert kz.gated_row_matmul_cuda.launches == before
     with pytest.raises(ValueError, match="kernel_backend"):
         ServeConfig(kernel_backend="pallas", device="cpu")
-    for kw in ({"paging": object()}, {"telemetry": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(model, **kw)
+    assert isinstance(_engine(model, paging=PagingConfig(page_size=8)),
+                      PagedServeEngine)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine(model, telemetry=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(model[3], model[2], ServeConfig(device="cpu"),
                     mesh=object())
