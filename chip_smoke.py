@@ -7,7 +7,7 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds every CUDA source of the port (one ``nvcc`` each, all at
-once: three libraries) and drives the port's main paths, each with the
+once: six libraries) and drives the port's main paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 * the paper's CNN power measurement, ``analyze_network("resnet50")`` at
@@ -32,6 +32,18 @@ kernels' launch counts set to 0 just before it and read just after:
   classes; (c) with half the pages it must preempt. The greedy tokens of
   (b) and (c) are held against an uncontended run, and (b) against
   itself with every plain version.
+* the quickstart, ``repro_torch.apps.quickstart.run(device="cuda")``:
+  the paper pair's stream report, BIC on the weight bus and its toggles,
+  the tile-gated matmul and the design menu. Kernels: the transition
+  counter (K5), the BIC encoder (K6), the tile-gated matmul (K7) and K1.
+  It is held against the same run with every plain version, and prints
+  the JAX example's six lines. Then K5-K7 run at full width on every
+  ResNet50 site at 224 px (one synthetic image): K6 on the weight words,
+  K5 on them, their mantissa field and K6's output, K7 on the operands
+  in bf16. K5 and K6 are held to K1's rows of the same words, and K5-K7
+  to their plain versions, on every site. K6's plain version walks T in
+  Python (some 55 k steps over the 54 sites); that one walk is also K6's
+  plain time.
 
 Before them, each kernel is held against its plain PyTorch version on
 the card (counters bitwise, products within a stated tolerance); after
@@ -68,6 +80,12 @@ K2_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:96"
 K3_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:179"
 K4_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 K4_REPLACES = "src/repro/kernels/zvg_matmul/fused.py:259"
+K5_SOURCE = "src/repro_torch/csrc/transitions.cu"
+K5_REPLACES = "src/repro/kernels/transitions/kernel.py:42"
+K6_SOURCE = "src/repro_torch/csrc/bic_encode.cu"
+K6_REPLACES = "src/repro/kernels/bic_encode/kernel.py:73"
+K7_SOURCE = "src/repro_torch/csrc/zvg_tiled_matmul.cu"
+K7_REPLACES = "src/repro/kernels/zvg_matmul/kernel.py:70"
 
 #: decode products of the kernels (K2, K3) and of their plain versions
 #: against the float32 product of the same operands, per output dtype:
@@ -843,7 +861,409 @@ def phase_paged_serving(cfg, params, slot_eng, slot_done: dict) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- timing
+# --------------------------------------- quickstart path: K5, K6, K7
+def word_err(*pairs) -> int:
+    """The largest |got - want| over ``(got, want)`` pairs of integer or
+    bool tensors: 0 when each pair is bitwise equal."""
+    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               for g, w in pairs)
+
+
+def phase_stream_kernel_cases() -> tuple[int, int]:
+    """K5 and K6 against their plain versions on the card, bitwise, over
+    the case list of ``repro_torch.kernels.transitions.cases`` (every
+    mask, with and without ``init``, uint16 and int32 words); K6's output
+    must decode back to its input. Returns K5's and K6's largest
+    |kernel - plain| (0: bitwise equal)."""
+    from repro_torch.core import bic
+    from repro_torch.kernels.bic_encode import kernel as k6
+    from repro_torch.kernels.bic_encode.ref import bic_encode_ref
+    from repro_torch.kernels.transitions import kernel as k5
+    from repro_torch.kernels.transitions.cases import (BIC_MASKS, BIC_SHAPES,
+                                                       TRANSITION_MASKS,
+                                                       TRANSITION_SHAPES,
+                                                       stream_words)
+    from repro_torch.kernels.transitions.ref import transitions_ref
+
+    n5 = n6 = err5 = err6 = 0
+    for T, L in TRANSITION_SHAPES:
+        x = stream_words(T, L, seed=T + L)
+        init = stream_words(1, L, seed=L)[0]
+        for mask in TRANSITION_MASKS:
+            for i in (None, init):
+                want = transitions_ref(x, mask, i)
+                for words in (x, x.to(torch.uint16)):
+                    got = k5.transitions_cuda(words, mask, i)
+                    err5 = max(err5, word_err((got, want)))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K5 {T}x{L} mask {mask:#x} init "
+                            f"{i is not None} {words.dtype}: kernel != "
+                            f"plain version")
+                    n5 += 1
+    for T, L in BIC_SHAPES:
+        x = stream_words(T, L, seed=T * L)
+        for mask in BIC_MASKS:
+            for words in (x, x.to(torch.uint16)):
+                tx, inv = k6.bic_encode_cuda(words, mask)
+                want_tx, want_inv = bic_encode_ref(words, mask)
+                ctx = f"K6 {T}x{L} mask {mask:#x} {words.dtype}"
+                err6 = max(err6, word_err((tx, want_tx), (inv, want_inv)))
+                if not (torch.equal(tx, want_tx)
+                        and torch.equal(inv, want_inv)):
+                    raise AssertionError(f"{ctx}: kernel != plain version")
+                if not torch.equal(bic.bic_decode(tx, inv[:, None, :],
+                                                  (mask,)), x):
+                    raise AssertionError(f"{ctx}: does not decode back")
+                n6 += 1
+    torch.cuda.synchronize()
+    log(f"transitions vs plain on the card: {n5} cases bitwise equal; "
+        f"bic_encode vs plain: {n6} cases bitwise equal, each decoding "
+        f"back to its input")
+    return err5, err6
+
+
+def phase_tiled_kernel_cases() -> tuple[dict, float]:
+    """K7 against its plain version on the card over ``TILED_CASES`` (the
+    JAX package's shapes and block sweep, planted zero blocks, all-zero
+    ``a``, a -0.0 tile, a NaN tile), float32 and bfloat16, once for each
+    of ``PAGED_SEEDS``: gated maps equal, products within ``TILED_TOL``.
+    The plain version's product is full float32 only with TF32 off, so
+    that is checked first. Returns the largest relative error per dtype
+    and the largest absolute one."""
+    from repro_torch.kernels.zvg_matmul import kernel, ref
+    from repro_torch.kernels.zvg_matmul.cases import (TILED_CASES, TILED_TOL,
+                                                      tiled_case,
+                                                      tiled_error)
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is let into float32 matmuls: the plain "
+                             "tile-gated product would be off by ~1e-3")
+    names = {d: str(d).split(".")[-1] for d in TILED_TOL}
+    err = dict.fromkeys(names.values(), 0.0)
+    abs_err = 0.0
+    for seed in PAGED_SEEDS:
+        for M, K, N, bm, bn, bk, zf, plant in TILED_CASES:
+            for dtype, name in names.items():
+                a, b = tiled_case(M, K, N, zf, plant, dtype,
+                                  seed=1000 * seed + M + K)
+                out, gated = kernel.zvg_matmul_cuda(a, b, bm, bn, bk)
+                want, want_gated = ref.zvg_matmul_ref(a, b, bm, bk)
+                ctx = (f"K7 {name} seed {seed} {M}x{K}x{N} blocks "
+                       f"({bm}, {bn}, {bk}) {plant or zf}")
+                if not torch.equal(gated, want_gated):
+                    raise AssertionError(f"{ctx}: gated maps differ")
+                if plant == "zero_blocks" and int(gated.sum()) != 2:
+                    raise AssertionError(f"{ctx}: {int(gated.sum())} tiles "
+                                         f"gated, planted 2")
+                rel = tiled_error(out, want)
+                if not rel <= TILED_TOL[dtype]:
+                    raise AssertionError(f"{ctx}: relative error {rel!r} "
+                                         f"over {TILED_TOL[dtype]}")
+                err[name] = max(err[name], rel)
+                fin = ~torch.isnan(want)
+                if fin.any():
+                    abs_err = max(abs_err, float((out - want)[fin].abs()
+                                                 .max()))
+    log(f"zvg_matmul vs plain on the card: {len(TILED_CASES)} cases x 2 "
+        f"dtypes x {len(PAGED_SEEDS)} seeds, gated maps equal, max "
+        f"relative error {json.dumps(err)} within "
+        f"{json.dumps({names[d]: t for d, t in TILED_TOL.items()})}; max "
+        f"|kernel - plain| {abs_err!r}")
+    return err, abs_err
+
+
+def phase_quickstart() -> tuple[dict, int, int]:
+    """The quickstart path, ``repro_torch.apps.quickstart.run`` on the
+    card with the kernels (each of K1, K5, K6, K7 must launch), then with
+    every plain version: equal bus toggles and gated maps, energies and
+    savings within rtol 1e-6, products within ``TILED_TOL``. K5 and K6
+    are then held bitwise to their plain versions at the path's own
+    shape, the weight words ``int32 [512, 128]``: per-lane counts, ``tx``
+    and ``inv``. Prints the example's six lines; returns the kernels'
+    launches and K5's and K6's largest |kernel - plain| there."""
+    from repro_torch.apps import quickstart
+    from repro_torch.core.bits import MANT_MASK, to_bits
+    from repro_torch.kernels.bic_encode import kernel as k6
+    from repro_torch.kernels.bic_encode.ref import bic_encode_ref
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.transitions import kernel as k5
+    from repro_torch.kernels.transitions.ref import transitions_ref
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.kernels.zvg_matmul.cases import TILED_TOL, tiled_error
+
+    counted = (k1.fused_counters_cuda, k5.transitions_cuda,
+               k6.bic_encode_cuda, kz.zvg_matmul_cuda)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = quickstart.run(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if not all(launches.values()):
+        raise AssertionError(f"quickstart launches {launches}: a kernel of "
+                             f"the path did not run")
+    want = quickstart.run(device="cuda", backend="ref")
+    if (got["t_raw"], got["t_enc"]) != (want["t_raw"], want["t_enc"]):
+        raise AssertionError(f"weight-bus toggles {got['t_raw']}, "
+                             f"{got['t_enc']} != plain {want['t_raw']}, "
+                             f"{want['t_enc']}")
+    if not torch.equal(got["gated"], want["gated"]):
+        raise AssertionError("quickstart: gated maps differ")
+    rel = tiled_error(got["out"], want["out"])
+    if not rel <= TILED_TOL[torch.bfloat16]:
+        raise AssertionError(f"quickstart: product relative error {rel!r}")
+    pairs = [(f"power/{d}/{k}", got["power"][d][k], v)
+             for d in ("baseline", "proposed")
+             for k, v in want["power"][d].items()]
+    pairs += [(f"{n}/{k}", got["evaluated"][n]["energy"][k], v)
+              for n, r in want["evaluated"].items()
+              for k, v in r["energy"].items()]
+    pairs += [(f"savings/{n}/{k}", got["savings"][n][k], v)
+              for n, r in want["savings"].items() for k, v in r.items()]
+    for key, g, w in pairs:
+        assert_close(float(g), float(w), f"quickstart {key}")
+    if got["best"] != want["best"]:
+        raise AssertionError(f"best design {got['best']} != {want['best']}")
+    W = torch.from_numpy(quickstart.operands()[1]).to(got["out"].device)
+    bits = to_bits(W.to(torch.bfloat16))
+    tx, inv = k6.bic_encode_cuda(bits, MANT_MASK)
+    want_tx, want_inv = bic_encode_ref(bits, MANT_MASK)
+    err6 = word_err((tx, want_tx), (inv, want_inv))
+    err5 = word_err(*[(k5.transitions_cuda(x, m), transitions_ref(x, m))
+                      for x in (bits, want_tx) for m in (0xFFFF, MANT_MASK)])
+    if err5 or err6:
+        raise AssertionError(f"quickstart words {tuple(bits.shape)} "
+                             f"{bits.dtype}: K5 off by {err5}, K6 by {err6} "
+                             f"against the plain versions")
+    for line in quickstart.lines(got):
+        log(line)
+    log(f"quickstart main path on the card: wall {wall:.4f} s, launches "
+        f"{json.dumps(launches)}; equal to the "
+        f"plain run (toggles {got['t_raw']} -> {got['t_enc']}, gated "
+        f"{int(got['gated'].sum())}, product relative error {rel!r}); K5 "
+        f"per lane and K6's tx and inv bitwise equal to the plain versions "
+        f"on the words {tuple(bits.shape)} {bits.dtype}")
+    return launches, err5, err6
+
+
+def site_words(W: torch.Tensor) -> torch.Tensor:
+    """A weight matrix's bf16 words ``[K, N]`` as contiguous uint16."""
+    from repro_torch.core.bits import to_bits
+
+    return to_bits(W).to(torch.uint16).contiguous()
+
+
+def phase_resnet_sites() -> dict:
+    """K5, K6 and K7 at full width: every ResNet50 site at 224 px (one
+    synthetic image). Per site K6 on the weight words ``[K, N]``, K5 on
+    them, on their mantissa field and on K6's ``tx``, K7 on ``(A, W)`` in
+    bf16. K5 and K6 are held to K1 (``raw``, ``mant_raw``,
+    ``bic/007f/data`` and ``bic/007f/inv`` of the same words) and to their
+    plain versions, and K7 to its plain version, on every site. The four
+    wrappers' counts are set to 0 before the pass and read after it.
+    Returns the operands for the timings, the launches, K5's and K6's
+    largest |kernel - plain|, K6's plain time summed over the sites (CUDA
+    events around each Python walk) and the gated-tile total."""
+    from repro_torch.apps.cnn import analysis, nets
+    from repro_torch.core import bic
+    from repro_torch.core.bits import MANT_MASK
+    from repro_torch.kernels.bic_encode import kernel as k6
+    from repro_torch.kernels.bic_encode.ref import bic_encode_ref
+    from repro_torch.kernels.power_counters import CounterSpec
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.transitions import kernel as k5
+    from repro_torch.kernels.transitions.ref import transitions_ref
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.kernels.zvg_matmul import ref as zref
+    from repro_torch.kernels.zvg_matmul.cases import TILED_TOL, tiled_error
+
+    spec = CounterSpec(bic_variants=(bic.MANTISSA_ONLY,))
+    rows = {name: i for i, name in enumerate(spec.rows)}
+    key = bic.seg_key(bic.MANTISSA_ONLY)
+    images = nets.synthetic_images(1, 224, seed=7, device="cuda")
+    traces = nets.forward_with_traces("resnet50", images, seed=0)
+    counted = (k1.fused_counters_cuda, k5.transitions_cuda,
+               k6.bic_encode_cuda, kz.zvg_matmul_cuda)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sites, gated_sites, tiles, rel7 = [], {}, 0, 0.0
+    err5 = err6 = 0
+    k6_plain_ms = 0.0
+    for t in traces:
+        A, W = analysis.matmul_operands(t)
+        words = site_words(W)
+        a = A.to(torch.bfloat16).contiguous()
+        b = W.to(torch.bfloat16).contiguous()
+        tx, inv = k6.bic_encode_cuda(words, MANT_MASK)
+        raw = k5.transitions_cuda(words)
+        mant = k5.transitions_cuda(words, MANT_MASK)
+        data = k5.transitions_cuda(tx)
+        inv_toggles = (inv ^ torch.cat([torch.zeros_like(inv[:1]),
+                                        inv[:-1]])).sum(0, dtype=torch.int32)
+        counts, _ = k1.fused_counters_cuda(words, spec)
+        for name, got in (("raw", raw), ("mant_raw", mant),
+                          (f"bic/{key}/data", data),
+                          (f"bic/{key}/inv", inv_toggles)):
+            if not torch.equal(got, counts[rows[name]]):
+                raise AssertionError(f"ResNet50 {t.name}: K5/K6 toggles != "
+                                     f"K1's {name} row")
+        start.record()
+        want_tx, want_inv = bic_encode_ref(words, MANT_MASK)
+        end.record()
+        end.synchronize()
+        k6_plain_ms += start.elapsed_time(end)
+        e5 = word_err((raw, transitions_ref(words)),
+                      (mant, transitions_ref(words, MANT_MASK)),
+                      (data, transitions_ref(want_tx)))
+        e6 = word_err((tx, want_tx), (inv, want_inv))
+        if e5 or e6:
+            raise AssertionError(f"ResNet50 {t.name}: K5 off its plain "
+                                 f"version by {e5}, K6 by {e6}")
+        err5, err6 = max(err5, e5), max(err6, e6)
+        out, gated = kz.zvg_matmul_cuda(a, b)
+        want, want_gated = zref.zvg_matmul_ref(a, b)
+        if not torch.equal(gated, want_gated):
+            raise AssertionError(f"ResNet50 {t.name}: K7 gated maps differ")
+        r = tiled_error(out, want)
+        if not r <= TILED_TOL[torch.bfloat16]:
+            raise AssertionError(f"ResNet50 {t.name}: K7 relative error "
+                                 f"{r!r}")
+        rel7 = max(rel7, r)
+        if gated.any():
+            gated_sites[t.name] = int(gated.sum())
+        tiles += gated.numel()
+        sites.append((t.name, words, a, b, gated))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if not all(launches.values()):
+        raise AssertionError(f"ResNet50 site pass launches {launches}: a "
+                             f"kernel did not run")
+    log(f"ResNet50 @ 224 px, {len(sites)} sites at full width, launches "
+        f"{json.dumps(launches)}: K5 and K6 toggles equal K1's raw, "
+        f"mant_raw, bic/{key}/data and bic/{key}/inv rows on every site; "
+        f"K5 and K6 equal their plain versions on every site (K6's plain "
+        f"walk {k6_plain_ms:.1f} ms in all); K7's gated maps equal on every "
+        f"site, product relative error at most {rel7!r}; K7 gated "
+        f"{sum(gated_sites.values())} of {tiles} 128 x 128 tiles, by site "
+        f"{json.dumps(gated_sites)}")
+    return {"sites": sites, "launches": launches, "err5": err5,
+            "err6": err6, "k6_plain_ms": k6_plain_ms,
+            "gated_tiles": sum(gated_sites.values()),
+            "gated_by_site": gated_sites, "tiles": tiles, "rel_err": rel7}
+
+
+def tiled_cost(a: torch.Tensor, b: torch.Tensor,
+               gated: torch.Tensor) -> tuple[float, float]:
+    """The least time K7 could take on an H100 (ms): its bytes (a and b
+    read once, the float32 product and the map written once) and the
+    operations of the live tiles only (2 per multiply-accumulate, at the
+    bf16 tensor-core rate)."""
+    (M, K), N = a.shape, b.shape[1]
+    bm = bk = 128
+    live = 0
+    for mb, kb in (gated == 0).nonzero().tolist():
+        live += min(bm, M - mb * bm) * min(bk, K - kb * bk)
+    nbytes = (a.element_size() * M * K + b.element_size() * K * N
+              + 4 * M * N + 4 * gated.numel())
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * live * N / BF16_OPS_PER_S * 1e3
+
+
+def library_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes K7's product (bf16 operands, a
+    float32 result), K7's yardstick; the port never calls it."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def phase_stream_timing(site_pass: dict) -> dict:
+    """K5 and K6 summed over the 54 ResNet50 weight streams, K7 summed
+    over the 54 sites and once at the quickstart shape, each beside its
+    plain version, its bound and (K7) the library call. K5 and K6: device
+    time per launch from the profiler (:func:`device_ms`), summed (their
+    launches are a few microseconds, which host gaps would swamp); K6's
+    plain version, a Python walk of some 55 k steps, as the site pass
+    timed it. K7, its
+    plain version and the library call by CUDA events, cycling through
+    the sites (:func:`time_cycle`; the profiler missed the library call's
+    kernels at the quickstart shape), K7 also by the profiler; K6 alone
+    on the largest stream by CUDA events over 5 launches."""
+    from repro_torch.apps import quickstart
+    from repro_torch.core.bits import MANT_MASK
+    from repro_torch.kernels.bic_encode import kernel as k6
+    from repro_torch.kernels.transitions import kernel as k5
+    from repro_torch.kernels.transitions.ref import transitions_ref
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.kernels.zvg_matmul import ref as zref
+
+    sites = site_pass["sites"]
+    n = len(sites)
+    lib_name, lib = "torch.mm(a, b, out_dtype=torch.float32)", library_matmul
+    words = [w for _, w, _, _, _ in sites]
+    t5 = {"ms": n * device_ms([lambda w=w: k5.transitions_cuda(w)
+                               for w in words]),
+          "plain_ms": n * device_ms([lambda w=w: transitions_ref(w)
+                                     for w in words]),
+          "bytes_ms": sum(2 * w.numel() + 4 * w.shape[1] for w in words)
+          / HBM_BYTES_PER_S * 1e3,
+          "ops_ms": sum(3 * w.numel() for w in words) / ALU_OPS_PER_S * 1e3}
+    t6 = {"ms": n * device_ms([lambda w=w: k6.bic_encode_cuda(w, MANT_MASK)
+                               for w in words]),
+          "plain_ms": site_pass["k6_plain_ms"],
+          "bytes_ms": sum(5 * w.numel() for w in words)
+          / HBM_BYTES_PER_S * 1e3,
+          "ops_ms": sum(4 * w.numel() for w in words) / ALU_OPS_PER_S * 1e3}
+    ops7 = [(a, b) for _, _, a, b, _ in sites]
+    kern7 = [lambda a=a, b=b: kz.zvg_matmul_cuda(a, b) for a, b in ops7]
+    t7 = {"ms": n * time_cycle(kern7, 3),
+          "plain_ms": n * time_cycle([lambda a=a, b=b: zref.zvg_matmul_ref(
+              a, b) for a, b in ops7], 3),
+          "library_ms": n * time_cycle([lambda a=a, b=b: lib(a, b)
+                                        for a, b in ops7], 3),
+          "profiler_ms": n * device_ms(kern7),
+          "bytes_ms": 0.0, "ops_ms": 0.0}
+    for _, _, a, b, gated in sites:
+        b_ms, o_ms = tiled_cost(a, b, gated)
+        t7["bytes_ms"] += b_ms
+        t7["ops_ms"] += o_ms
+    A, W = (torch.from_numpy(v).to(words[0].device).to(torch.bfloat16)
+            for v in quickstart.operands())
+    _, qgated = kz.zvg_matmul_cuda(A, W)
+    qb, qo = tiled_cost(A, W, qgated)
+    t7["quickstart"] = {
+        "M": A.shape[0], "K": A.shape[1], "N": W.shape[1],
+        "ms": time_ms(lambda: kz.zvg_matmul_cuda(A, W), 20),
+        "plain_ms": time_ms(lambda: zref.zvg_matmul_ref(A, W), 20),
+        "library_ms": time_ms(lambda: lib(A, W), 20),
+        "bound_ms": max(qb, qo)}
+    t7["library"] = lib_name
+    for name, t in (("transitions", t5), ("bic_encode", t6),
+                    ("zvg_matmul", t7)):
+        bound = max(t["bytes_ms"], t["ops_ms"])
+        log(f"{name} summed over the {n} ResNet50 sites, ms: kernel "
+            f"{t['ms']:.4f}, plain {t['plain_ms']:.4f}"
+            + (f", {lib_name} {t['library_ms']:.4f}" if "library_ms" in t
+               else "") + f", bound {bound:.5f}")
+    q = t7["quickstart"]
+    log(f"zvg_matmul summed over the sites by the profiler: "
+        f"{t7['profiler_ms']:.4f} ms")
+    log(f"zvg_matmul at the quickstart shape {q['M']}x{q['K']}x{q['N']} "
+        f"(bf16), ms by CUDA events: kernel {q['ms']:.5f}, plain "
+        f"{q['plain_ms']:.5f}, {lib_name} {q['library_ms']:.5f}, bound "
+        f"{q['bound_ms']:.6f}")
+    big = max(sites, key=lambda s: s[1].shape[0])
+    t6["largest"] = {"site": big[0], "T": big[1].shape[0],
+                     "L": big[1].shape[1],
+                     "ms": time_ms(lambda: k6.bic_encode_cuda(
+                         big[1], MANT_MASK), 5)}
+    return {"k5": t5, "k6": t6, "k7": t7}
+
+
 def time_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -1227,7 +1647,7 @@ def main() -> int:
         return 1
     from repro_torch import design as D
     from repro_torch.kernels import _build
-    from repro_torch.kernels.zvg_matmul.cases import ATTN_TOL
+    from repro_torch.kernels.zvg_matmul.cases import ATTN_TOL, TILED_TOL
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -1247,6 +1667,8 @@ def main() -> int:
     err = phase_kernel_cases()
     err2, err3 = phase_decode_kernel_cases()
     rel4, err4, fault4 = phase_paged_kernel_cases()
+    err5, err6 = phase_stream_kernel_cases()
+    rel7, err7 = phase_tiled_kernel_cases()
     designs = tuple(D.named_designs().values())
     layers, launches, _ = run_main_path("resnet50", designs, 54)
     sites, e = check_sites("resnet50", layers, designs)
@@ -1256,6 +1678,11 @@ def main() -> int:
     err = max(err, e)
     cfg, params, eng, slot_done, serve_launches = phase_serving()
     paged = phase_paged_serving(cfg, params, eng, slot_done)
+    quick_launches, e5, e6 = phase_quickstart()
+    site_pass = phase_resnet_sites()
+    err5 = max(err5, e5, site_pass["err5"])
+    err6 = max(err6, e6, site_pass["err6"])
+    site_launches = site_pass["launches"]
 
     phase_breakdown("resnet50", designs)
     tot = phase_timing(sites)
@@ -1267,6 +1694,9 @@ def main() -> int:
     k2, k3 = st["k2"], st["k3"]
     profiled = phase_decode_profile(cfg, eng)
     k4 = phase_paged_timing(cfg, paged["engine"], paged_requests(cfg.vocab))
+    stream = phase_stream_timing(site_pass)
+    k5, k6, k7 = stream["k5"], stream["k6"], stream["k7"]
+    n_sites = len(site_pass["sites"])
 
     def bound(t):
         return {"bound_ms": max(t["bytes_ms"], t["ops_ms"]),
@@ -1351,6 +1781,67 @@ def main() -> int:
         "paged_tokens_per_s": k4["tokens_per_s"],
         "profiled": k4["profiled"],
         "paged_runs": {k: paged[k] for k in "abc"},
+    }, {
+        "name": "count_transitions",
+        "route": "cuda",
+        "source": K5_SOURCE,
+        "replaces": K5_REPLACES,
+        "launches": quick_launches["transitions_cuda"],
+        "launches_resnet50_sites": site_launches["transitions_cuda"],
+        "max_abs_err": err5,
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        **bound(k5),
+        "library_ms": None,
+        "ms_over": f"one launch on each of the {n_sites} ResNet50 weight "
+                   f"streams at 224 px, device time (profiler), summed",
+        "shapes": {"streams": n_sites, "words": sum(
+            s[1].numel() for s in site_pass["sites"]), "dtype": "uint16"},
+    }, {
+        "name": "bic_encode",
+        "route": "cuda",
+        "source": K6_SOURCE,
+        "replaces": K6_REPLACES,
+        "launches": quick_launches["bic_encode_cuda"],
+        "launches_resnet50_sites": site_launches["bic_encode_cuda"],
+        "max_abs_err": err6,
+        "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"],
+        **bound(k6),
+        "library_ms": None,
+        "ms_over": f"one launch on each of the {n_sites} ResNet50 weight "
+                   f"streams at 224 px, device time (profiler), summed; "
+                   f"plain_ms by CUDA events around each of the site "
+                   f"pass's walks, summed",
+        "shapes": {"streams": n_sites, "largest": k6["largest"],
+                   "mask": "0x007f", "dtype": "uint16"},
+    }, {
+        "name": "zvg_matmul",
+        "route": "cuda",
+        "source": K7_SOURCE,
+        "replaces": K7_REPLACES,
+        "launches": quick_launches["zvg_matmul_cuda"],
+        "launches_resnet50_sites": site_launches["zvg_matmul_cuda"],
+        "max_abs_err": err7,
+        "max_rel_err": rel7,
+        "rel_tol": {str(d).split(".")[-1]: v for d, v in TILED_TOL.items()},
+        "resnet50_rel_err": site_pass["rel_err"],
+        "ms": k7["ms"],
+        "plain_ms": k7["plain_ms"],
+        **bound(k7),
+        "library_ms": k7["library_ms"],
+        "library": k7["library"],
+        "ms_over": f"one launch on each of the {n_sites} ResNet50 sites at "
+                   f"224 px (bf16), CUDA events cycling through the sites, "
+                   f"summed (plain_ms and library_ms the same way); "
+                   f"profiler_ms the kernel's device time by the profiler",
+        "profiler_ms": k7["profiler_ms"],
+        "quickstart": k7["quickstart"],
+        "gated_tiles": site_pass["gated_tiles"],
+        "gated_by_site": site_pass["gated_by_site"],
+        "tiles": site_pass["tiles"],
+        "shapes": {"sites": n_sites, "dtype": "bfloat16",
+                   "blocks": [128, 128, 128]},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

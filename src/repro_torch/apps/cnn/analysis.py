@@ -18,6 +18,7 @@ from typing import Sequence
 import torch
 
 from repro_torch import design as D
+from repro_torch.apps import check_device
 from repro_torch.core import bic, power, systolic
 
 from . import nets
@@ -105,17 +106,6 @@ def analyze_trace(trace: nets.LayerTrace,
         reference=reference, primary=primary)
 
 
-def _check_device(device: str | torch.device) -> torch.device:
-    """``device`` as a ``torch.device``; raises when it names CUDA and no
-    card is present (the port never falls back to the CPU by itself)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the analysis runs on the card by "
-            "default; pass device='cpu' to run it on the CPU")
-    return device
-
-
 def analyze_network(net: str, n_images: int = 2, seed: int = 0,
                     geom: systolic.SAGeometry = systolic.PAPER_SA,
                     segs: Sequence[int] = bic.MANTISSA_ONLY,
@@ -125,7 +115,7 @@ def analyze_network(net: str, n_images: int = 2, seed: int = 0,
                     res: int = 224) -> list[LayerPower]:
     """Full per-layer analysis of a CNN (paper Figs. 4/5 data) on
     ``n_images`` synthetic ``res`` px images, run on ``device``."""
-    device = _check_device(device)
+    device = check_device(device, "the analysis")
     images = nets.synthetic_images(n_images, res, seed=seed + 7,
                                    device=device)
     traces = nets.forward_with_traces(net, images, seed=seed)

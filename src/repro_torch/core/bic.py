@@ -95,3 +95,46 @@ def bic_encode(stream: torch.Tensor, segments: Segments = MANTISSA_ONLY,
         return stream, torch.zeros((0, len(segs)) + stream.shape[1:],
                                    dtype=torch.bool, device=stream.device)
     return torch.stack(txs, dim=0), torch.stack(invs, dim=0)
+
+
+def bic_decode(tx: torch.Tensor, inv: torch.Tensor,
+               segments: Segments = MANTISSA_ONLY) -> torch.Tensor:
+    """Invert :func:`bic_encode`: the original ``int32[T, *lanes]``
+    stream from the transmitted words and ``inv bool[T, S, *lanes]``."""
+    segs = _check_segments(segments)
+    out = tx.to(torch.int32)
+    for si, m in enumerate(segs):
+        out = torch.where(inv[:, si], out ^ m, out)
+    return out
+
+
+def bic_transitions(stream: torch.Tensor,
+                    segments: Segments = MANTISSA_ONLY,
+                    init: torch.Tensor | None = None,
+                    include_inv_lines: bool = True) -> torch.Tensor:
+    """Per-lane bus transition counts after BIC encoding: toggles of every
+    data bit of the encoded bus plus (optionally) of the per-segment
+    ``inv`` lines, the ``init -> tx[0]`` edge included.
+
+    Returns ``int32[*lanes]``.
+    """
+    segs = _check_segments(segments)
+    stream = stream.to(torch.int32)
+    init = (torch.zeros_like(stream[0]) if init is None
+            else init.to(torch.int32))
+    tx, inv = bic_encode(stream, segs, init)
+    prev = torch.cat([init[None], tx[:-1]], dim=0)
+    data_t = B.hamming(tx, prev).sum(dim=0, dtype=torch.int32)
+    if not include_inv_lines:
+        return data_t
+    prev_inv = torch.cat([torch.zeros_like(inv[:1]), inv[:-1]], dim=0)
+    return data_t + (inv ^ prev_inv).sum(dim=(0, 1), dtype=torch.int32)
+
+
+def encode_weight_mantissas(w: torch.Tensor):
+    """Paper configuration: BIC-encode the mantissa field of bf16 weights
+    ``[K, N]`` in streaming order (K = streaming axis).
+
+    Returns ``(tx_bits int32[K, N], inv bool[K, 1, N])``.
+    """
+    return bic_encode(B.to_bits(w), MANTISSA_ONLY)

@@ -11,9 +11,24 @@ from __future__ import annotations
 
 import torch
 
+BF16_BITS = 16
 SIGN_SHIFT = 15
+EXP_SHIFT = 7
+SIGN_MASK = 0x8000
 EXP_MASK = 0x7F80
 MANT_MASK = 0x007F
+FULL_MASK = 0xFFFF
+EXP_BIAS = 127
+
+#: Named bus segments used by segmented bus-invert coding.
+SEGMENTS: dict[str, int] = {
+    "full": 0xFFFF,
+    "sign": 0x8000,
+    "exponent": 0x7F80,
+    "mantissa": 0x007F,
+    "sign_mantissa": 0x807F,
+    "exp_mantissa": 0x7FFF,
+}
 
 #: the quiet-NaN word XLA writes for a NaN cast to bfloat16 (sign kept)
 QNAN = 0x7FC0
@@ -45,6 +60,21 @@ def from_bits(u: torch.Tensor) -> torch.Tensor:
 def to_bf16(x: torch.Tensor) -> torch.Tensor:
     """Cast to bfloat16 with XLA's NaN words (see :func:`to_bits`)."""
     return from_bits(to_bits(x))
+
+
+def exponent_field(u: torch.Tensor) -> torch.Tensor:
+    """Raw (biased) 8-bit exponent field of each word, as ``int32``."""
+    return (u.to(torch.int32) & EXP_MASK) >> EXP_SHIFT
+
+
+def mantissa_field(u: torch.Tensor) -> torch.Tensor:
+    """7-bit mantissa field of each word, as ``int32``."""
+    return u.to(torch.int32) & MANT_MASK
+
+
+def sign_field(u: torch.Tensor) -> torch.Tensor:
+    """Sign bit of each word, as ``int32``."""
+    return (u.to(torch.int32) & SIGN_MASK) >> SIGN_SHIFT
 
 
 def popcount(u: torch.Tensor) -> torch.Tensor:

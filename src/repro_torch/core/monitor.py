@@ -103,6 +103,21 @@ def subsample_operands(acts: torch.Tensor, weights: torch.Tensor,
     return A, W
 
 
+def sample_sizes(acts_shape, weights_shape,
+                 cfg: MonitorConfig = DEFAULT_MONITOR) -> dict:
+    """Sampled and full sizes (host-side) for the given shapes."""
+    m = 1
+    for d in acts_shape[:-1]:
+        m *= int(d)
+    k, n = int(weights_shape[0]), int(weights_shape[1])
+    return {
+        "full_m": m, "full_k": k, "full_n": n,
+        "sample_m": min(m, cfg.max_rows),
+        "sample_k": min(k, cfg.max_depth),
+        "sample_n": min(n, cfg.max_cols),
+    }
+
+
 def stream_counters(A: torch.Tensor, W: torch.Tensor,
                     cfg: MonitorConfig = DEFAULT_MONITOR) -> dict:
     """Flat scalar counters (float32 0-d tensors) for one pre-shaped
@@ -162,3 +177,34 @@ def counters_toggles(counters: dict, scale: float = 1.0) -> dict:
             axis, name = key.split("/", 1)
             out.setdefault(name, {})[axis] = float(v) * scale
     return out
+
+
+def monitor_matmul(acts: torch.Tensor, weights: torch.Tensor,
+                   cfg: MonitorConfig = DEFAULT_MONITOR) -> dict:
+    """Streaming-power metrics for one ``acts [..., K] @ weights [K, N]``
+    matmul (leading dims of ``acts`` flattened into M), as float32 0-d
+    tensors: zero fraction, streaming activity reduction, total and
+    streaming savings and streaming share (primary design vs the
+    reference design of ``cfg.design_list``), and the sample sizes
+    actually streamed."""
+    from repro_torch.design.evaluate import evaluate_operands
+    A, W = subsample_operands(acts, weights, cfg)
+    ev = evaluate_operands(A, W, cfg.design_list, cfg.backend)
+    ref = ev[cfg.reference_design]
+    pri = ev[cfg.primary_design]
+    one = torch.tensor(1.0)
+    metrics = {
+        "zero_fraction": ref["zero_fraction"],
+        "activity_reduction": 1.0 - (pri["h"] + pri["v"])
+        / torch.maximum(ref["h"] + ref["v"], one),
+        "saving_total": 1.0 - pri["energy"]["total"]
+        / torch.maximum(ref["energy"]["total"], one),
+        "saving_streaming": 1.0 - pri["energy"]["streaming"]
+        / torch.maximum(ref["energy"]["streaming"], one),
+        "streaming_share": ref["energy"]["streaming"]
+        / ref["energy"]["total"],
+    }
+    metrics.update({k: torch.tensor(float(v))
+                    for k, v in sample_sizes(acts.shape, weights.shape,
+                                             cfg).items()})
+    return metrics

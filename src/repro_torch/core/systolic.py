@@ -311,3 +311,10 @@ def streaming_activity_reduction(report: dict) -> torch.Tensor:
     base = report["h_reg_toggles_base"] + report["v_reg_toggles_base"]
     prop = report["h_reg_toggles_prop"] + report["v_reg_toggles_prop"]
     return 1.0 - prop / torch.clamp_min(base, 1.0)
+
+
+def sa_matmul_reference(A: torch.Tensor, Bm: torch.Tensor) -> torch.Tensor:
+    """Numerical ground truth of what the modelled SA computes: the
+    float32 product (full float32 on the card unless the caller lets
+    TF32 into ``torch.matmul``)."""
+    return torch.matmul(A.to(torch.float32), Bm.to(torch.float32))

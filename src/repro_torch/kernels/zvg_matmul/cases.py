@@ -1,6 +1,7 @@
-"""The cases and the stated tolerance that hold the paged decode attention
-(K4) to its plain version on the card. ``chip_smoke.py`` and the card
-tests (``tests/test_torch_cuda.py``) both read them from here.
+"""The cases and the stated tolerances that hold the paged decode
+attention (K4) and the tile-gated matmul (K7) to their plain versions on
+the card. ``chip_smoke.py`` and the card tests
+(``tests/test_torch_cuda.py``) both read them from here.
 
 The tolerance is on the relative error of the output: ``max |kernel -
 plain| <= ATTN_TOL[dtype] * max |plain|`` over each case. In bfloat16
@@ -14,6 +15,7 @@ to 1.1 in both.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: max |kernel - plain| <= ATTN_TOL * max |plain|, per dtype
@@ -69,3 +71,78 @@ def relative_error(got: torch.Tensor, want: torch.Tensor) -> float:
     """``max |got - want| / max |want|``, the measure ``ATTN_TOL`` bounds."""
     diff = (got.float() - want.float()).abs().max()
     return float(diff / want.float().abs().max())
+
+
+#: K7: max |kernel - plain| <= TILED_TOL * max |plain| over the finite
+#: entries, per operand dtype, with NaN in the same places. Both sum the
+#: same float32 products (a bfloat16 product is exact in float32), the
+#: kernel k in order, the plain version in cuBLAS's order. On an H100 the
+#: largest reading over ``chip_smoke.py``'s 8 seeds of ``TILED_CASES`` was
+#: 7.2e-7 in float32 and 3.5e-7 in bfloat16, and 9.8e-7 over the 54
+#: ResNet50 sites at 224 px (bfloat16, K up to 4608); each limit is about
+#: twice the largest.
+TILED_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-6}
+
+#: ``(M, K, N, block_m, block_n, block_k, zero fraction, plant)``: the
+#: shapes, block sweep and planted cases of the JAX package's own kernel
+#: tests, and last two more plants: a tile of -0.0 (gated) and a zero tile
+#: with one NaN (live)
+TILED_CASES = (
+    (128, 128, 128, 128, 128, 128, 0.5, None),
+    (256, 384, 128, 128, 128, 128, 0.5, None),
+    (100, 200, 50, 128, 128, 128, 0.5, None),
+    (1, 128, 1, 128, 128, 128, 0.5, None),
+    (130, 257, 70, 128, 128, 128, 0.5, None),
+    (64, 256, 64, 128, 128, 128, 0.4, None),
+    (192, 320, 192, 64, 64, 64, 0.6, None),
+    (192, 320, 192, 128, 128, 128, 0.6, None),
+    (192, 320, 192, 64, 128, 256, 0.6, None),
+    (256, 384, 128, 128, 128, 128, 0.0, "zero_blocks"),
+    (128, 256, 128, 128, 128, 128, 0.0, "all_zero"),
+    (256, 256, 96, 128, 128, 128, 0.5, "neg_zero_tile"),
+    (256, 256, 96, 128, 128, 128, 0.5, "nan_tile"),
+)
+
+
+def tiled_case(M: int, K: int, N: int, zf: float, plant, dtype: torch.dtype,
+               seed: int, device="cuda"):
+    """Operands ``a [M, K]`` (normal values, a fraction ``zf`` set to 0)
+    and ``b [K, N]`` from numpy's ``default_rng(seed)``, in ``dtype`` on
+    ``device``, with ``plant``: ``"zero_blocks"`` zeroes the 128-tiles
+    (0, 0) and (1, 2); ``"all_zero"`` zeroes all of ``a``;
+    ``"neg_zero_tile"`` fills the 128-tile (0, 1) with -0.0;
+    ``"nan_tile"`` zeroes the 128-tile (1, 0) but for one NaN, and zeroes
+    the tile (0, 1) beside it."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    a[rng.random((M, K)) < zf] = 0.0
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    if plant == "zero_blocks":
+        a[0:128, 0:128] = 0.0
+        a[128:256, 256:384] = 0.0
+    elif plant == "all_zero":
+        a[:] = 0.0
+    elif plant == "neg_zero_tile":
+        a[0:128, 128:256] = -0.0
+    elif plant == "nan_tile":
+        a[128:256, 0:128] = 0.0
+        a[130, 5] = np.nan
+        a[0:128, 128:256] = 0.0
+    elif plant is not None:
+        raise ValueError(f"unknown plant {plant!r}")
+    return (torch.from_numpy(a).to(dtype).to(device),
+            torch.from_numpy(b).to(dtype).to(device))
+
+
+def tiled_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``max |got - want| / max |want|`` over the entries where ``want``
+    is not NaN (0 where ``want`` is all zeros and ``got`` equals it), the
+    measure ``TILED_TOL`` bounds; infinite where the NaNs of the two lie
+    in different places."""
+    got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    if not torch.equal(nan, torch.isnan(got)):
+        return float("inf")
+    diff = (got - want).abs().masked_fill(nan, 0.0).max()
+    scale = want.abs().masked_fill(nan, 0.0).max()
+    return float(diff / torch.clamp_min(scale, 1e-30))

@@ -1,11 +1,14 @@
 """Wrappers of the Hopper decode-path kernels (``csrc/zvg_matmul.cu``,
-``csrc/paged_attention.cu``).
+``csrc/paged_attention.cu``) and of the tile-gated matmul
+(``csrc/zvg_tiled_matmul.cu``).
 
 ``gated_row_matmul_cuda`` replaces the TPU kernel
 ``repro/kernels/zvg_matmul/fused.py::gated_row_matmul``,
 ``fused_matmul_counters_cuda`` replaces ``fused_matmul_counters`` and
-``fused_paged_attention_cuda`` replaces ``fused_paged_attention``; each
-source's header says how, and what bounds each. The libraries are built
+``fused_paged_attention_cuda`` replaces ``fused_paged_attention`` and
+``zvg_matmul_cuda`` replaces
+``repro/kernels/zvg_matmul/kernel.py::zvg_matmul_pallas``; each source's
+header says how, and what bounds each. The libraries are built
 with ``nvcc`` at first use and called through ``ctypes`` on PyTorch's
 current stream. The wrappers raise on tensors the kernels do not take and
 never fall back to the plain versions.
@@ -21,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.power_counters.kernel import spec_args
 from repro_torch.kernels.power_counters.spec import CounterSpec
 
-from .ref import check_operands, check_paged_operands
+from .ref import check_operands, check_paged_operands, check_tiled_operands
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,6 +53,18 @@ def _attention():
                    ctypes.c_float, ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _tiled():
+    fn = _build.load("zvg_tiled_matmul").zt_zvg_tiled_matmul
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+#: what the C entries return for arguments their kernels do not take
+_CUDA_ERROR_INVALID_VALUE = 1
 
 
 def _check_on_card(name: str, *tensors: torch.Tensor) -> None:
@@ -168,7 +183,40 @@ def fused_paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def zvg_matmul_cuda(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
+                    block_n: int = 128, block_k: int = 128):
+    """Zero-gated ``a [M, K] @ b [K, N]`` on the card (both float32 or
+    both bfloat16): ``(out float32[M, N], gated int32[ceil(M / block_m),
+    ceil(K / block_k)])``, skipping every gated tile. The map equals
+    :func:`.ref.zvg_matmul_ref`'s bit for bit, the product lies within
+    :data:`.cases.TILED_TOL` of its. ``block_n`` is accepted only for the
+    JAX package's signature: the kernel tiles N its own way, which changes
+    no result. Raises on operands or blocks the kernel does not take (the
+    block rule is ``zt_zvg_tiled_matmul``'s, in ``zvg_tiled_matmul.cu``)."""
+    check_tiled_operands(a, b, block_m, block_k)
+    _check_on_card("zvg_matmul_cuda", a, b)
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    gated = torch.empty((-(-M // block_m), -(-K // block_k)),
+                        dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = _tiled()(a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], M,
+                       K, N, block_m, block_k, out.data_ptr(),
+                       gated.data_ptr(), _stream(a.device))
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"zvg_matmul_cuda does not take blocks ({block_m}, "
+                         f"{block_k}) for a {M}x{K}x{N} product: block_m "
+                         f"must be a multiple of the kernel's row tile and "
+                         f"block_k of its k step (zvg_tiled_matmul.cu)")
+    if err:
+        raise RuntimeError(f"zvg tiled matmul kernel launch failed: CUDA "
+                           f"error {err}")
+    zvg_matmul_cuda.launches += 1
+    return out, gated
+
+
 #: kernel launches so far; set them to 0 before a run to count that run's
 gated_row_matmul_cuda.launches = 0
 fused_matmul_counters_cuda.launches = 0
 fused_paged_attention_cuda.launches = 0
+zvg_matmul_cuda.launches = 0

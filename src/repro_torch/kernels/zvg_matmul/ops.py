@@ -1,4 +1,5 @@
-"""Entry points of the decode-path kernels. ``backend`` picks the
+"""Entry points of the decode-path kernels and of the tile-gated matmul.
+``backend`` picks the
 implementation as :mod:`repro_torch.kernels.power_counters.ops` does:
 
 * ``"auto"`` (default) -- the Hopper kernel for CUDA tensors, the plain
@@ -14,9 +15,9 @@ from repro_torch.kernels.power_counters.ops import resolve_backend
 from repro_torch.kernels.power_counters.spec import CounterSpec
 
 from .kernel import (fused_matmul_counters_cuda, fused_paged_attention_cuda,
-                     gated_row_matmul_cuda)
+                     gated_row_matmul_cuda, zvg_matmul_cuda)
 from .ref import (fused_matmul_counters_ref, fused_paged_attention_ref,
-                  gated_row_matmul_ref)
+                  gated_row_matmul_ref, zvg_matmul_ref)
 
 
 def gated_row_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -53,3 +54,15 @@ def fused_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                           scale=scale, softcap=softcap)
     return fused_paged_attention_ref(q, k_pool, v_pool, pages, lengths,
                                      attend, scale=scale, softcap=softcap)
+
+
+def zvg_matmul(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
+               block_n: int = 128, block_k: int = 128,
+               backend: str | None = None):
+    """Zero-gated tiled matmul: ``(float32[M, N], gated int32[ceil(M /
+    block_m), ceil(K / block_k)])``, the dense product up to the order of
+    the float32 sums; a tile of ``a`` holding only zeros (-0.0 included)
+    is skipped and marked 1 (see :func:`.ref.zvg_matmul_ref`)."""
+    if resolve_backend(backend, a.device) == "cuda":
+        return zvg_matmul_cuda(a, b, block_m, block_n, block_k)
+    return zvg_matmul_ref(a, b, block_m, block_k)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the decode-path kernels.
+"""Plain PyTorch versions of the decode-path kernels and of the
+tile-gated matmul.
 
 :func:`gated_row_matmul_ref` is ``torch.matmul`` with the row gate;
 :func:`fused_matmul_counters_ref` is that product plus the plain counter
@@ -6,13 +7,15 @@ pass (:func:`repro_torch.kernels.power_counters.ref.fused_counters_ref`)
 over the same west and north word streams the kernel walks;
 :func:`fused_paged_attention_ref` gathers a dense view of each row's
 pages and runs the caller's dense decode attention on it. The CPU runs
-them, the
-``"ref"`` backend runs them on any device, and the card-side checks hold
-the kernels against them.
+them;
+:func:`zvg_matmul_ref` is the float32 product plus the gated-tile map
+from tile maxima. The CPU runs them, the ``"ref"`` backend runs them on
+any device, and the card-side checks hold the kernels against them.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.bits import to_bits
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
@@ -133,3 +136,42 @@ def fused_paged_attention_ref(q, k_pool, v_pool, pages, lengths, attend, *,
     check_paged_operands(q, k_pool, v_pool, pages, lengths)
     return attend(q, gather_pages(k_pool, pages), gather_pages(v_pool, pages),
                   lengths, scale=scale, softcap=softcap)
+
+
+def check_tiled_operands(a: torch.Tensor, b: torch.Tensor, block_m: int,
+                         block_k: int) -> None:
+    """Raise on operands the tile-gated matmul does not take: ``a [M, K]``
+    and ``b [K, N]`` of one dtype of :data:`DTYPES`, M, K, N >= 1, and
+    positive block sizes."""
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"operands must share a dtype of {DTYPES}, got "
+                        f"{a.dtype} and {b.dtype}")
+    if (a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]
+            or min(a.shape + b.shape) < 1):
+        raise ValueError(f"operands must be [M, K] x [K, N] with M, K, N "
+                         f">= 1, got {tuple(a.shape)} x {tuple(b.shape)}")
+    if min(block_m, block_k) < 1:
+        raise ValueError(f"block sizes must be positive, got {block_m}, "
+                         f"{block_k}")
+
+
+def zvg_matmul_ref(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
+                   block_k: int = 128):
+    """Zero-gated tiled matmul, plainly: ``(a @ b as float32 [M, N],
+    gated int32[ceil(M / block_m), ceil(K / block_k)])``, the map 1 where
+    the ``[block_m, block_k]`` tile of ``a`` (zero-padded) holds only
+    zeros. The map tests values from tile maxima, as the JAX package's
+    ``abs(tile).max() == 0``: -0.0 is zero and a NaN makes its tile live.
+    Zero tiles add exact zeros, so the product is the dense float32
+    product; on the card it is full float32 as long as the caller lets no
+    TF32 into ``torch.matmul`` (``torch.backends.cuda.matmul.allow_tf32``
+    False, ``torch.get_float32_matmul_precision()`` "highest", the
+    defaults)."""
+    check_tiled_operands(a, b, block_m, block_k)
+    out = torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    M, K = a.shape
+    am = F.pad(a.abs().to(torch.float32),
+               (0, (-K) % block_k, 0, (-M) % block_m))
+    Mb, Kb = am.shape[0] // block_m, am.shape[1] // block_k
+    tile_max = am.reshape(Mb, block_m, Kb, block_k).amax(dim=(1, 3))
+    return out, (tile_max == 0).to(torch.int32)

@@ -16,12 +16,13 @@ import torch
 from repro.core import activity as j_activity
 from repro.core import bic as j_bic
 from repro.core import bits as j_bits
+from repro.core import monitor as j_monitor
 from repro.core import power as j_power
 from repro.core import precision as j_prec
 from repro.core import systolic as j_systolic
 from repro.core import zvg as j_zvg
-from repro_torch.core import (activity, bic, bits, power, precision,
-                              systolic, zvg)
+from repro_torch.core import (activity, bic, bits, monitor, power,
+                              precision, systolic, zvg)
 
 RTOL = 1e-6
 
@@ -224,3 +225,171 @@ def test_geometry_validation():
     assert systolic.SAGeometry(16, 16) == systolic.PAPER_SA
     with pytest.raises(ValueError, match="rows >= 1"):
         systolic.SAGeometry(0, 16)
+
+
+# ------------------------------------------------- fields and constants
+def test_bit_constants_and_segments_match():
+    for name in ("BF16_BITS", "SIGN_SHIFT", "EXP_SHIFT", "EXP_BIAS"):
+        assert getattr(bits, name) == getattr(j_bits, name), name
+    for name in ("SIGN_MASK", "EXP_MASK", "MANT_MASK", "FULL_MASK"):
+        assert getattr(bits, name) == int(getattr(j_bits, name)), name
+    assert bits.SEGMENTS == j_bits.SEGMENTS
+
+
+def test_fields_on_every_word():
+    w = torch.arange(1 << 16, dtype=torch.int32)
+    u = jnp.arange(1 << 16, dtype=jnp.uint16)
+    for name in ("exponent_field", "mantissa_field", "sign_field"):
+        got = getattr(bits, name)(w)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(getattr(j_bits, name)(u)), err_msg=name)
+    # uint16 words give the same fields
+    u16 = w.to(torch.uint16)
+    assert torch.equal(bits.exponent_field(u16), bits.exponent_field(w))
+
+
+# ------------------------------------------------------------- ZVG report
+@pytest.mark.parametrize("zf", [0.0, 0.5, 0.95])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_zvg_stream_report(zf, with_init):
+    x = _words((90, 5), zf=zf, seed=int(zf * 10) + with_init)
+    x[::5, 1] = 0x8000                              # -0.0 is zero too
+    init = _words((5,), zf=0.0, seed=8) if with_init else None
+    want = j_zvg.zvg_stream_report(
+        jnp.asarray(x), None if init is None else jnp.asarray(init))
+    got = zvg.zvg_stream_report(_t(x), None if init is None else _t(init))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == torch.int32, k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_zero_fraction_matches():
+    rng = np.random.default_rng(6)
+    v = rng.standard_normal((37, 29)).astype(np.float32)
+    v[rng.random(v.shape) < 0.45] = 0.0
+    v[0, :3] = -0.0
+    got = zvg.zero_fraction(torch.from_numpy(v))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got),
+                               float(j_zvg.zero_fraction(jnp.asarray(v))),
+                               rtol=RTOL)
+
+
+# --------------------------------------------------------- BIC decoding
+@pytest.mark.parametrize("name", sorted(j_bic.NAMED_SEGMENTS))
+def test_bic_decode_and_transitions(name):
+    segs = bic.NAMED_SEGMENTS[name]
+    x = _words((70, 6), zf=0.3, seed=len(name) + 20)
+    init = _words((6,), zf=0.0, seed=21)
+    tx, inv = bic.bic_encode(_t(x), segs)
+    dec = bic.bic_decode(tx, inv, segs)
+    jt, ji = j_bic.bic_encode(jnp.asarray(x), segs)
+    np.testing.assert_array_equal(dec.numpy(), x.astype(np.int32))
+    np.testing.assert_array_equal(
+        dec.numpy(), np.asarray(j_bic.bic_decode(jt, ji, segs)))
+    for i in (None, init):
+        for lines in (False, True):
+            want = j_bic.bic_transitions(
+                jnp.asarray(x), segs, None if i is None else jnp.asarray(i),
+                include_inv_lines=lines)
+            got = bic.bic_transitions(_t(x), segs,
+                                      None if i is None else _t(i),
+                                      include_inv_lines=lines)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_encode_weight_mantissas_matches():
+    rng = np.random.default_rng(3)
+    w = (rng.standard_normal((32, 16)) * 0.05).astype(np.float32)
+    tx, inv = bic.encode_weight_mantissas(torch.from_numpy(w))
+    jt, ji = j_bic.encode_weight_mantissas(jnp.asarray(w, jnp.bfloat16))
+    assert tuple(tx.shape) == (32, 16) and tuple(inv.shape) == (32, 1, 16)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(ji))
+
+
+# ------------------------------------------------------ activity helpers
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("mask", [0xFFFF, 0x007F])
+def test_matrix_transitions_and_activity_factor(axis, mask):
+    rng = np.random.default_rng(axis + mask)
+    m = (rng.standard_normal((24, 40)) * 0.3).astype(np.float32)
+    m[rng.random(m.shape) < 0.3] = 0.0
+    got = activity.matrix_transitions(torch.from_numpy(m), axis, mask)
+    want = j_activity.matrix_transitions(jnp.asarray(m), axis, mask)
+    assert got.dtype == torch.int32 and int(got) == int(want)
+    np.testing.assert_allclose(
+        float(activity.activity_factor(torch.from_numpy(m), axis)),
+        float(j_activity.activity_factor(jnp.asarray(m), axis)), rtol=RTOL)
+
+
+@pytest.mark.parametrize("bins", [64, 17])
+def test_field_histograms_and_concentration(bins):
+    rng = np.random.default_rng(bins)
+    w = (rng.standard_normal(20000) * 0.05).astype(np.float32)
+    got = activity.field_histograms(torch.from_numpy(w), bins=bins)
+    want = j_activity.field_histograms(jnp.asarray(w), bins=bins)
+    assert set(got) == set(want)
+    for k in ("value_counts", "exp_counts", "mant_counts"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    np.testing.assert_allclose(got["value_edges"].numpy(),
+                               np.asarray(want["value_edges"]), rtol=0,
+                               atol=1e-6)
+    for k in ("exp_counts", "mant_counts", "value_counts"):
+        for top in (4, 8):
+            np.testing.assert_allclose(
+                float(activity.concentration(got[k], top)),
+                float(j_activity.concentration(want[k], top)), rtol=RTOL)
+
+
+def test_field_histograms_constant_input():
+    # a range of zero width is widened by 0.5 each way, as in jnp
+    w = np.full(50, 0.25, np.float32)
+    got = activity.field_histograms(torch.from_numpy(w), bins=8)
+    want = j_activity.field_histograms(jnp.asarray(w), bins=8)
+    np.testing.assert_array_equal(got["value_counts"].numpy(),
+                                  np.asarray(want["value_counts"]))
+    np.testing.assert_allclose(got["value_edges"].numpy(),
+                               np.asarray(want["value_edges"]), atol=1e-6)
+
+
+# --------------------------------------------------- SA reference, monitor
+def test_sa_matmul_reference_matches():
+    rng = np.random.default_rng(12)
+    A = rng.standard_normal((33, 70)).astype(np.float32)
+    W = rng.standard_normal((70, 19)).astype(np.float32)
+    got = systolic.sa_matmul_reference(torch.from_numpy(A),
+                                       torch.from_numpy(W))
+    want = np.asarray(j_systolic.sa_matmul_reference(jnp.asarray(A),
+                                                     jnp.asarray(W)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_monitor_matmul_matches():
+    rng = np.random.default_rng(13)
+    acts = np.abs(rng.standard_normal((3, 40, 64))).astype(np.float32)
+    acts[rng.random(acts.shape) < 0.5] = 0.0
+    w = (rng.standard_normal((64, 48)) * 0.05).astype(np.float32)
+    kw = dict(max_rows=100, max_cols=32, max_depth=48)
+    got = monitor.monitor_matmul(torch.from_numpy(acts), torch.from_numpy(w),
+                                 monitor.MonitorConfig(**kw))
+    want = j_monitor.monitor_matmul(jnp.asarray(acts), jnp.asarray(w),
+                                    j_monitor.MonitorConfig(**kw))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=RTOL,
+                                   err_msg=k)
+
+
+def test_core_exports_match_the_jax_package():
+    import repro.core as j_core
+    import repro_torch.core as t_core
+    public = {n for n in dir(j_core) if not n.startswith("_")}
+    assert public <= {n for n in dir(t_core) if not n.startswith("_")}

@@ -10,8 +10,13 @@ product (the rule ``chip_smoke.py`` states), and gated rows are
 bit-equal; the paged decode attention (K4) lies within ``ATTN_TOL`` of
 its plain version, relative to the output's largest magnitude, over the
 case list ``chip_smoke.py`` holds it to (both from
-``repro_torch.kernels.zvg_matmul.cases``). This file imports no JAX: the
-GPU machine need not have it.
+``repro_torch.kernels.zvg_matmul.cases``). The stream kernels of the
+quickstart path -- the transition counter (K5) and the BIC encoder (K6)
+-- are bitwise equal to theirs over the cases of
+``repro_torch.kernels.transitions.cases``, and the tile-gated matmul
+(K7) has the same gated map and lies within ``TILED_TOL`` over
+``TILED_CASES``. This file imports no JAX: the GPU machine need not have
+it.
 """
 import pytest
 import torch
@@ -20,11 +25,21 @@ from repro_torch import design as D
 from repro_torch.core import bic, systolic
 from repro_torch.kernels.power_counters import CounterSpec, edge_counters
 from repro_torch.kernels.power_counters import kernel as k1
+from repro_torch.kernels.bic_encode import kernel as k6
+from repro_torch.kernels.bic_encode import ref as ref6
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
+from repro_torch.kernels.transitions import kernel as k5
+from repro_torch.kernels.transitions import ref as ref5
+from repro_torch.kernels.transitions.cases import (BIC_MASKS, BIC_SHAPES,
+                                                   TRANSITION_MASKS,
+                                                   TRANSITION_SHAPES,
+                                                   stream_words)
 from repro_torch.kernels.zvg_matmul import kernel as kz
 from repro_torch.kernels.zvg_matmul import ref as zref
 from repro_torch.kernels.zvg_matmul.cases import (ATTN_TOL, PAGED_CASES,
-                                                  paged_case, relative_error)
+                                                  TILED_CASES, TILED_TOL,
+                                                  paged_case, relative_error,
+                                                  tiled_case, tiled_error)
 from repro_torch.models.attention import decode_attention
 
 pytestmark = pytest.mark.cuda
@@ -304,3 +319,91 @@ def test_paged_engine_on_the_card_kernels_equal_plain(cuda):
     for uid, r in runs[0].items():
         assert r.generated == runs[1][uid].generated
         assert r.power.energy == runs[1][uid].power.energy
+
+
+# ------------------------------------------------- quickstart path: K5-K7
+@pytest.mark.parametrize("T,L", TRANSITION_SHAPES)
+def test_transitions_kernel_matches_plain(cuda, T, L):
+    x = stream_words(T, L, seed=T + L)
+    init = stream_words(1, L, seed=L)[0]
+    before = k5.transitions_cuda.launches
+    n = 0
+    for mask in TRANSITION_MASKS:
+        for i in (None, init):
+            want = ref5.transitions_ref(x, mask, i)
+            for words in (x, x.to(torch.uint16)):
+                got = k5.transitions_cuda(words, mask, i)
+                n += 1
+                assert torch.equal(got, want), (mask, i is None, words.dtype)
+    assert k5.transitions_cuda.launches == before + n
+
+
+@pytest.mark.parametrize("T,L", BIC_SHAPES)
+def test_bic_encode_kernel_matches_plain(cuda, T, L):
+    x = stream_words(T, L, seed=T * L)
+    for mask in BIC_MASKS:
+        for words in (x, x.to(torch.uint16)):
+            tx, inv = k6.bic_encode_cuda(words, mask)
+            want_tx, want_inv = ref6.bic_encode_ref(words, mask)
+            assert tx.dtype == words.dtype and inv.dtype == torch.bool
+            assert torch.equal(tx, want_tx) and torch.equal(inv, want_inv)
+            dec = bic.bic_decode(tx, inv[:, None, :], (mask,))
+            assert torch.equal(dec, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", TILED_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}-b{c[3]}.{c[4]}.{c[5]}"
+                              f"-{c[7] or c[6]}" for c in TILED_CASES])
+def test_zvg_tiled_kernel_matches_plain(cuda, case, dtype):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    M, K, N, bm, bn, bk, zf, plant = case
+    a, b = tiled_case(M, K, N, zf, plant, dtype, seed=M + K)
+    before = kz.zvg_matmul_cuda.launches
+    out, gated = kz.zvg_matmul_cuda(a, b, bm, bn, bk)
+    assert kz.zvg_matmul_cuda.launches == before + 1
+    want, want_gated = zref.zvg_matmul_ref(a, b, bm, bk)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, want_gated)
+    assert tiled_error(out, want) <= TILED_TOL[dtype]
+
+
+def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = stream_words(16, 8, seed=0)
+    for fn in (lambda w: k5.transitions_cuda(w),
+               lambda w: k6.bic_encode_cuda(w, 0x7F)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(x.cpu())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.t())
+        with pytest.raises(TypeError, match="uint16 or int32"):
+            fn(x.to(torch.int64))
+    for mask in (0, 0x10000):
+        with pytest.raises(ValueError, match="16-bit word"):
+            k6.bic_encode_cuda(x, mask)
+    a, b = tiled_case(64, 64, 64, 0.5, None, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kz.zvg_matmul_cuda(a.cpu(), b.cpu())
+    with pytest.raises(ValueError, match="multiple of"):
+        kz.zvg_matmul_cuda(a, b, block_m=32)
+    with pytest.raises(TypeError, match="share a dtype"):
+        kz.zvg_matmul_cuda(a, b.to(torch.bfloat16))
+
+
+def test_quickstart_on_the_card_kernels_equal_plain(cuda):
+    from repro_torch.apps import quickstart
+
+    counted = (k1.fused_counters_cuda, k5.transitions_cuda,
+               k6.bic_encode_cuda, kz.zvg_matmul_cuda)
+    before = [fn.launches for fn in counted]
+    got = quickstart.run("cuda")
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [4, 2, 1, 1]
+    want = quickstart.run("cuda", backend="ref")
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [4, 2, 1, 1]
+    assert (got["t_raw"], got["t_enc"]) == (want["t_raw"], want["t_enc"])
+    assert torch.equal(got["gated"], want["gated"])
+    assert tiled_error(got["out"], want["out"]) <= TILED_TOL[torch.bfloat16]
+    g, w = quickstart.lines(got), quickstart.lines(want)
+    assert g[:4] == w[:4] and g[5] == w[5]
