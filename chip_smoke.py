@@ -45,8 +45,12 @@ kernels' launch counts set to 0 just before it and read just after:
   Python (some 55 k steps over the 54 sites); that one walk is also K6's
   plain time.
 
-Before them, each kernel is held against its plain PyTorch version on
-the card (counters bitwise, products within a stated tolerance); after
+The build prints ptxas's registers, shared memory and spills for the
+streaming decode matmul (K2) and the wgmma tile-gated matmul (K7), and
+K7's library must hold wgmma and TMA-load instructions in its SASS.
+Before the main paths, each kernel is held against its plain PyTorch
+version on the card (counters bitwise, products within a stated
+tolerance); after
 them, each is timed at its main path's shapes with CUDA events. The line
 before the last lists the kernels as JSON; the last line is ``{"ok":
 true, "device": {...}}``. Without a card, or without the rest of the
@@ -54,6 +58,7 @@ repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -108,6 +113,10 @@ SERVE_CACHE = 256
 SERVE_MAX_NEW = 32
 SERVE_STOCHASTIC = (2, 5)     # temperature 0.8, top-k 5; the rest greedy
 
+#: (K, N) of the decode matmuls of Qwen1.5-0.5B: wq/wk/wv/wo, ffn up and
+#: gate, ffn down, lm head
+DECODE_SHAPES = ((1024, 1024), (1024, 2816), (2816, 1024), (1024, 151936))
+
 #: K4 is held to its plain version over its case list (and stated
 #: tolerance, ``repro_torch.kernels.zvg_matmul.cases``) once per seed
 PAGED_SEEDS = (0, 1, 2, 3, 4, 5, 6, 7)
@@ -119,6 +128,47 @@ PAGED_ROWS = 8
 PAGED_HI = (0, 5, 10, 15)           # the "hi" class (priority 1)
 PAGED_STOCHASTIC = (3, 7, 11, 14)   # temperature 0.8, top-k 5
 PAGED_SYSTEM = 64                   # shared system-prompt tokens
+
+
+#: the kernels this slice redesigned, by library: their ptxas lines
+#: (registers, shared memory, spills) are printed after the build
+REDESIGNED = {"zvg_matmul": ("stream_kernel",),
+              "zvg_tiled_matmul": ("wgmma_kernel", "gate_kernel")}
+
+
+def ptxas_summary(name: str, kernels) -> list[str]:
+    """One line per compiled entry of ``kernels`` in ``name``'s build log:
+    its template arguments, registers, shared memory and spill bytes."""
+    from repro_torch.kernels import _build
+
+    lines, entry = [], None
+    for line in (_build.BUILD / f"{name}.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = next((k for k in kernels if k in line), None), ""
+            args = line.split(entry)[1].split("EEv")[0] if entry else ""
+        elif entry and "spill stores" in line:
+            spill = line.split("bytes stack frame,")[1].strip()
+        elif entry and "Used" in line and "registers" in line:
+            lines.append(f"{entry}{args}: {line.split('Used', 1)[1].strip()}"
+                         f"; {spill}")
+            entry = None
+    return lines
+
+
+def sass_check(lib: Path) -> None:
+    """K7's bf16 route must run on wgmma fed by TMA: its library's SASS
+    holds HGMMA (warpgroup MMA) and UTMALDG (TMA load) instructions."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()):
+        raise AssertionError(f"zvg_tiled_matmul SASS lacks wgmma or TMA "
+                             f"loads: {counts}")
+    log(f"zvg_tiled_matmul SASS: {json.dumps(counts)} (wgmma on TMA-fed "
+        f"tiles)")
 
 
 def log(msg: str) -> None:
@@ -368,9 +418,9 @@ def phase_decode_kernel_cases() -> tuple[float, float]:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     err2 = 0.0
-    shapes = [(4, 1024, 1024), (4, 1024, 2816), (4, 2816, 1024),
-              (4, 1024, 151936)]
-    shapes += [(m, k, n) for m in (1, 3, 7) for k in (1, 63)
+    shapes = [(M, K, N) for M in (SERVE_SLOTS, PAGED_ROWS)
+              for K, N in DECODE_SHAPES]
+    shapes += [(m, k, n) for m in (1, 3, 7, 9) for k in (1, 63)
                for n in (1, 129)]
     n2 = 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -1256,6 +1306,21 @@ def phase_stream_timing(site_pass: dict) -> dict:
         f"(bf16), ms by CUDA events: kernel {q['ms']:.5f}, plain "
         f"{q['plain_ms']:.5f}, {lib_name} {q['library_ms']:.5f}, bound "
         f"{q['bound_ms']:.6f}")
+    # the five sites where K7 takes longest (device time, profiler), each
+    # beside the library call at that site
+    per_site = sorted(
+        ((device_ms([lambda a=a, b=b: kz.zvg_matmul_cuda(a, b)] * 3), name,
+          a, b) for name, _, a, b, _ in sites), key=lambda t: -t[0])[:5]
+    t7["slowest"] = [
+        {"site": name, "M": a.shape[0], "K": a.shape[1], "N": b.shape[1],
+         "splits": kz.tiled_plan(a.shape[0], a.shape[1], b.shape[1], 128,
+                                 128).splits, "ms": ms,
+         "library_ms": device_ms([lambda a=a, b=b: lib(a, b)] * 3)}
+        for ms, name, a, b in per_site]
+    for t in t7["slowest"]:
+        log(f"zvg_matmul slowest site {t['site']} {t['M']}x{t['K']}x"
+            f"{t['N']} ({t['splits']} splits), device ms: kernel "
+            f"{t['ms']:.4f}, {lib_name} {t['library_ms']:.4f}")
     big = max(sites, key=lambda s: s[1].shape[0])
     t6["largest"] = {"site": big[0], "T": big[1].shape[0],
                      "L": big[1].shape[1],
@@ -1265,33 +1330,31 @@ def phase_stream_timing(site_pass: dict) -> dict:
 
 
 def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return time_cycle([fn], reps)
 
 
 def time_cycle(fns, reps: int) -> float:
     """Mean ms per call of ``fns`` run in turn ``reps`` times (CUDA
     events). Cycling through a main path's distinct weights keeps them
-    out of the 50 MB L2 cache, as one decode step finds them."""
+    out of the 50 MB L2 cache, as one decode step finds them. Python's
+    garbage collector is held off inside the window: a collection of
+    this process's large heap would land on whichever call is timed."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        for fn in fns:
-            fn()
-    end.record()
-    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
     return start.elapsed_time(end) / (reps * len(fns))
 
 
@@ -1414,6 +1477,27 @@ def phase_serving_timing(cfg, eng) -> dict:
             f" torch.matmul {k2['library_ms']:.4f}, bound "
             f"{max(k2['bytes_ms'], k2['ops_ms']):.4f}; kernel by CUDA "
             f"events {k2['events_ms']:.4f}")
+        # the same shapes at the paged step's 8 rows
+        k2["rows_8"] = {"ms": 0.0, "library_ms": 0.0, "shapes": []}
+        for name, ws in groups.items():
+            K, N = ws[0].shape
+            x = torch.randn(PAGED_ROWS, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ms = device_ms([lambda w=w: kernel.gated_row_matmul_cuda(x, w)
+                            for w in ws])
+            lib_ms = device_ms([lambda w=w: torch.matmul(x, w) for w in ws])
+            k2["rows_8"]["ms"] += len(ws) * ms
+            k2["rows_8"]["library_ms"] += len(ws) * lib_ms
+            k2["rows_8"]["shapes"].append({
+                "weights": name, "M": PAGED_ROWS, "K": K, "N": N,
+                "per_step": len(ws), "ms": ms, "library_ms": lib_ms,
+                "bound_ms": 2 * (PAGED_ROWS * K + K * N + PAGED_ROWS * N)
+                / HBM_BYTES_PER_S * 1e3})
+            log(f"gated_row_matmul {PAGED_ROWS}x{K}x{N} ({name}), device ms "
+                f"per launch: kernel {ms:.4f}, torch.matmul {lib_ms:.4f}")
+        log(f"gated_row_matmul per decode step at {PAGED_ROWS} rows, device "
+            f"ms: kernel {k2['rows_8']['ms']:.4f}, torch.matmul "
+            f"{k2['rows_8']['library_ms']:.4f}")
 
         # K3 on the accountant's operands: the embedded decode inputs and
         # the monitored weights, sub-sampled as record_decode does
@@ -1663,6 +1747,10 @@ def main() -> int:
                  (_build.BUILD / f"{name}.log").read_text().splitlines()
                  if "registers" in l or "spill" in l]
         log(f"ptxas {name}: " + " | ".join(ptxas[:8]))
+    for name, kernels in REDESIGNED.items():
+        for line in ptxas_summary(name, kernels):
+            log(f"ptxas {name}: {line}")
+    sass_check(paths["zvg_tiled_matmul"])
 
     err = phase_kernel_cases()
     err2, err3 = phase_decode_kernel_cases()
@@ -1733,6 +1821,7 @@ def main() -> int:
         "ms_over": f"one decode step's {k2['launches']} launches, device "
                    f"time (profiler); events_ms by CUDA events",
         "shapes": k2["shapes"],
+        "rows_8": k2["rows_8"],
         "decode_step_ms": st["decode_step_ms"],
         "share_of_decode_step": st["k2_share"],
         "profiled": profiled.get("decode step"),
@@ -1836,6 +1925,7 @@ def main() -> int:
                    f"summed (plain_ms and library_ms the same way); "
                    f"profiler_ms the kernel's device time by the profiler",
         "profiler_ms": k7["profiler_ms"],
+        "slowest_sites": k7["slowest"],
         "quickstart": k7["quickstart"],
         "gated_tiles": site_pass["gated_tiles"],
         "gated_by_site": site_pass["gated_by_site"],

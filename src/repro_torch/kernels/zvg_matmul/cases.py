@@ -85,8 +85,10 @@ TILED_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-6}
 
 #: ``(M, K, N, block_m, block_n, block_k, zero fraction, plant)``: the
 #: shapes, block sweep and planted cases of the JAX package's own kernel
-#: tests, and last two more plants: a tile of -0.0 (gated) and a zero tile
-#: with one NaN (live)
+#: tests, two more plants: a tile of -0.0 (gated) and a zero tile with one
+#: NaN (live), and last two in the shape of the ResNet50 site pass: a 7 x 7
+#: site cut to K = 1152, which the card splits 9 ways, and a stem-like K
+#: of 147, which TMA cannot read unpadded
 TILED_CASES = (
     (128, 128, 128, 128, 128, 128, 0.5, None),
     (256, 384, 128, 128, 128, 128, 0.5, None),
@@ -101,6 +103,8 @@ TILED_CASES = (
     (128, 256, 128, 128, 128, 128, 0.0, "all_zero"),
     (256, 256, 96, 128, 128, 128, 0.5, "neg_zero_tile"),
     (256, 256, 96, 128, 128, 128, 0.5, "nan_tile"),
+    (49, 1152, 256, 128, 128, 128, 0.5, None),
+    (200, 147, 64, 128, 128, 128, 0.3, None),
 )
 
 

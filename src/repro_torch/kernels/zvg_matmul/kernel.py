@@ -12,13 +12,23 @@ header says how, and what bounds each. The libraries are built
 with ``nvcc`` at first use and called through ``ctypes`` on PyTorch's
 current stream. The wrappers raise on tensors the kernels do not take and
 never fall back to the plain versions.
+
+The grids of K2 and K7 are planned here, in plain Python that the CPU
+tests reach: :func:`decode_plan` splits K2's K across blocks where its
+column tiles are too few to fill the card, :func:`tiled_plan` picks K7's
+output tile and splits K in whole ``bk`` tiles where its output tiles
+number fewer than the SMs, and :func:`tma_operands` zero-pads K7's
+bfloat16 operands to row strides the tensor memory accelerator can
+describe.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.power_counters.kernel import spec_args
@@ -36,7 +46,7 @@ _SPEC = [_I, _P, _I, _P, _I, _I]      # spec_args
 def _functions():
     lib = _build.load("zvg_matmul")
     gemm = lib.zm_gated_row_matmul
-    gemm.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P]
+    gemm.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]
     fused = lib.zm_fused_matmul_counters
     fused.argtypes = ([_P, _I, _P, _I, _P, _I, _I, _I, _I,
                        _P, _P, _I, _I] + _SPEC
@@ -58,9 +68,133 @@ def _attention():
 @functools.cache
 def _tiled():
     fn = _build.load("zvg_tiled_matmul").zt_zvg_tiled_matmul
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P] + [_I] * 11 + [_P, _P, _I, _P]
     fn.restype = ctypes.c_int
     return fn
+
+
+#: streaming multiprocessors of an H100 SXM, which the plans fill
+SMS = 132
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """K2's grid: ``tiles`` column tiles of ``cols`` columns (32 lanes of
+    one 16-byte weight load each), each taken by a cluster of ``splits``
+    blocks walking ``k_per_split`` k rows apiece (split ``s`` from row
+    ``s * k_per_split``); ``reason`` says why the grid holds fewer blocks
+    than the card has SMs, where it does."""
+    cols: int
+    tiles: int
+    k_per_split: int
+    splits: int
+    blocks: int
+    reason: str | None
+
+
+#: K2's plan: blocks wanted (one an SM), the fewest k rows a split walks
+#: (8 a warp), the most splits (a cluster's blocks) and the most k rows a
+#: block stages x for
+DECODE_BLOCKS = SMS
+DECODE_MIN_K = 64
+DECODE_MAX_SPLITS = 16
+DECODE_MAX_K = 2048
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(K: int, N: int, w_itemsize: int) -> DecodePlan:
+    """Split K2's K across a cluster of blocks where its ``ceil(N / cols)``
+    column tiles number fewer than :data:`DECODE_BLOCKS`: as many splits
+    as fill that, up to :data:`DECODE_MAX_SPLITS`, each a multiple of 8
+    rows, at least :data:`DECODE_MIN_K` and at most :data:`DECODE_MAX_K`
+    long. Raises for a K longer than the most splits can hold."""
+    if K > DECODE_MAX_SPLITS * DECODE_MAX_K:
+        raise ValueError(f"gated_row_matmul_cuda takes K up to "
+                         f"{DECODE_MAX_SPLITS * DECODE_MAX_K}, got {K}")
+    cols = 32 * (16 // w_itemsize)
+    tiles = -(-N // cols)
+    want = 1 if tiles >= DECODE_BLOCKS else -(-DECODE_BLOCKS // tiles)
+    splits = min(want, max(1, K // DECODE_MIN_K), DECODE_MAX_SPLITS)
+    splits = max(splits, -(-K // DECODE_MAX_K))
+    kps = -(-(-(-K // splits)) // 8) * 8
+    splits = -(-K // kps)
+    if splits == 1:
+        kps = K
+    blocks = tiles * splits
+    reason = None
+    if blocks < SMS:
+        reason = (f"{tiles} column tiles of {cols}, and K = {K} gives at "
+                  f"most {splits} splits (a cluster holds "
+                  f"{DECODE_MAX_SPLITS}, each of {DECODE_MIN_K} rows or "
+                  f"more)")
+    return DecodePlan(cols, tiles, kps, splits, blocks, reason)
+
+
+@dataclass(frozen=True)
+class TiledPlan:
+    """K7's grid (bfloat16 route): output tiles of ``tile_m`` x
+    ``tile_n``, K cut into ``splits`` runs of ``tiles_per_split`` whole
+    ``bk`` tiles (split ``s`` from tile ``s * tiles_per_split``);
+    ``reason`` says why the grid holds fewer blocks than the card has
+    SMs, where it does."""
+    tile_m: int
+    tile_n: int
+    tiles_per_split: int
+    splits: int
+    blocks: int
+    reason: str | None
+
+
+#: K7's most splits of K: the blocks of a cluster
+TILED_MAX_SPLITS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_plan(M: int, K: int, N: int, bm: int, bk: int) -> TiledPlan:
+    """K7's tiles and split: 128 x 128 output tiles where they are enough
+    to give every one of the :data:`SMS` a block (128 rows only where
+    ``bm`` allows), else 64 rows or columns, which make more tiles. Where
+    the output tiles still number fewer than the SMs, K splits into runs
+    of whole ``bk`` tiles, enough runs to give every SM a block where K
+    holds enough tiles, and at most :data:`TILED_MAX_SPLITS` (the blocks
+    of a cluster, which sum the splits)."""
+    tile_m = 128 if bm % 128 == 0 and -(-M // 128) * -(-N // 128) >= SMS \
+        else 64
+    tile_n = 128 if N > 64 and -(-M // tile_m) * -(-N // 128) >= SMS \
+        else 64
+    out_tiles = -(-M // tile_m) * -(-N // tile_n)
+    kb = -(-K // bk)
+    tps = kb
+    if out_tiles < SMS:
+        tps = max(1, kb // -(-SMS // out_tiles), -(-kb // TILED_MAX_SPLITS))
+    splits = -(-kb // tps)
+    blocks = out_tiles * splits
+    reason = None
+    if blocks < SMS:
+        reason = (f"{out_tiles} output tiles of {tile_m} x {tile_n}, and K "
+                  f"= {K} holds {kb} tiles of {bk}, split at most "
+                  f"{TILED_MAX_SPLITS} ways (a cluster)")
+    return TiledPlan(tile_m, tile_n, tps, splits, blocks, reason)
+
+
+def tma_operands(a: torch.Tensor, b: torch.Tensor):
+    """``a [M, K]`` and ``b [K, N]`` as the tensor memory accelerator can
+    read them: row strides a multiple of 16 bytes and 16-byte aligned
+    bases. Where K or N is not a multiple of 8 (bfloat16), a copy is
+    zero-padded up to one; zeros change neither the product nor the
+    gated map. Returns ``(a_padded [M, Kp], b_padded [Kp, Np])``, the
+    operands themselves where they already are."""
+    (M, K), N = a.shape, b.shape[1]
+    kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
+    if kp != K:
+        a = F.pad(a, (0, kp - K))
+    elif a.data_ptr() % 16:
+        a = a.clone()
+    if kp != K or np_ != N:
+        b = F.pad(b, (0, np_ - N, 0, kp - K))
+    elif b.data_ptr() % 16:
+        b = b.clone()
+    return a, b
 
 
 #: what the C entries return for arguments their kernels do not take
@@ -80,7 +214,8 @@ def _check_on_card(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def gated_row_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -95,11 +230,13 @@ def gated_row_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if K == 0:
         return out.zero_()
+    plan = decode_plan(K, N, w.element_size())
     gemm, _ = _functions()
     with torch.cuda.device(x.device):
         err = gemm(x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
                    _DTYPE_CODE[w.dtype], out.data_ptr(),
-                   _DTYPE_CODE[out_dtype], M, K, N, _stream(x.device))
+                   _DTYPE_CODE[out_dtype], M, K, N, plan.k_per_split,
+                   _stream(x.device))
     if err:
         raise RuntimeError(f"gated_row_matmul kernel launch failed: CUDA "
                            f"error {err}")
@@ -190,19 +327,28 @@ def zvg_matmul_cuda(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
     ceil(K / block_k)])``, skipping every gated tile. The map equals
     :func:`.ref.zvg_matmul_ref`'s bit for bit, the product lies within
     :data:`.cases.TILED_TOL` of its. ``block_n`` is accepted only for the
-    JAX package's signature: the kernel tiles N its own way, which changes
-    no result. Raises on operands or blocks the kernel does not take (the
-    block rule is ``zt_zvg_tiled_matmul``'s, in ``zvg_tiled_matmul.cu``)."""
+    JAX package's signature: the kernel tiles N its own way
+    (:func:`tiled_plan`), which changes no result. bfloat16 operands run
+    on ``wgmma`` from TMA-fed tiles (padded by :func:`tma_operands` where
+    needed), float32 ones on the SIMT route. Raises on operands or blocks
+    the kernel does not take (the block rule is ``zt_zvg_tiled_matmul``'s,
+    in ``zvg_tiled_matmul.cu``)."""
     check_tiled_operands(a, b, block_m, block_k)
     _check_on_card("zvg_matmul_cuda", a, b)
     (M, K), N = a.shape, b.shape[1]
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    dev = a.device
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
     gated = torch.empty((-(-M // block_m), -(-K // block_k)),
-                        dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _tiled()(a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], M,
-                       K, N, block_m, block_k, out.data_ptr(),
-                       gated.data_ptr(), _stream(a.device))
+                        dtype=torch.int32, device=dev)
+    ap, bp, tile_m, tile_n, tps = a, b, 64, 64, 1
+    if a.dtype == torch.bfloat16:
+        plan = tiled_plan(M, K, N, block_m, block_k)
+        ap, bp = tma_operands(a, b)
+        tile_m, tile_n, tps = plan.tile_m, plan.tile_n, plan.tiles_per_split
+    err = _tiled()(a.data_ptr(), ap.data_ptr(), bp.data_ptr(),
+                   _DTYPE_CODE[a.dtype], M, K, ap.shape[1], N, bp.shape[1],
+                   block_m, block_k, tile_m, tile_n, tps, out.data_ptr(),
+                   gated.data_ptr(), dev.index, _stream(dev))
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"zvg_matmul_cuda does not take blocks ({block_m}, "
                          f"{block_k}) for a {M}x{K}x{N} product: block_m "

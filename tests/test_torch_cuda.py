@@ -7,7 +7,9 @@ present; run this tier on a GPU machine with
 Integer counters must be bitwise equal; decode products (K2, K3) of the
 kernel and of the plain version lie within ``PRODUCT_TOL`` of the float32
 product (the rule ``chip_smoke.py`` states), and gated rows are
-bit-equal; the paged decode attention (K4) lies within ``ATTN_TOL`` of
+bit-equal, over the decode shapes, 8 and 9 rows with gated rows among live
+ones, the lm head and all four dtype pairs; the paged decode attention
+(K4) lies within ``ATTN_TOL`` of
 its plain version, relative to the output's largest magnitude, over the
 case list ``chip_smoke.py`` holds it to (both from
 ``repro_torch.kernels.zvg_matmul.cases``). The stream kernels of the
@@ -15,7 +17,8 @@ quickstart path -- the transition counter (K5) and the BIC encoder (K6)
 -- are bitwise equal to theirs over the cases of
 ``repro_torch.kernels.transitions.cases``, and the tile-gated matmul
 (K7) has the same gated map and lies within ``TILED_TOL`` over
-``TILED_CASES``. This file imports no JAX: the GPU machine need not have
+``TILED_CASES`` and ResNet50's split 7 x 7 and padded stem shapes, and a
+split of gated tiles writes +0.0. Each wrapper counts one launch a call. This file imports no JAX: the GPU machine need not have
 it.
 """
 import pytest
@@ -368,6 +371,67 @@ def test_zvg_tiled_kernel_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert torch.equal(gated, want_gated)
     assert tiled_error(out, want) <= TILED_TOL[dtype]
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk", [
+    (49, 4608, 512, 128, 128),       # s4b1.c2: split 12 ways in a cluster
+    (12544, 147, 64, 128, 128),      # the stem: padded for TMA
+    (192, 320, 192, 64, 16),         # the smallest blocks: kS = 16
+    (192, 320, 192, 64, 32)], ids=str)
+def test_zvg_tiled_kernel_on_site_shapes(cuda, M, K, N, bm, bk):
+    a, b = tiled_case(M, K, N, 0.5, None, torch.bfloat16, seed=M + K)
+    before = kz.zvg_matmul_cuda.launches
+    out, gated = kz.zvg_matmul_cuda(a, b, bm, 128, bk)
+    assert kz.zvg_matmul_cuda.launches == before + 1
+    want, want_gated = zref.zvg_matmul_ref(a, b, bm, bk)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, want_gated)
+    assert tiled_error(out, want) <= TILED_TOL[torch.bfloat16]
+
+
+def test_zvg_tiled_split_with_every_tile_gated_writes_plus_zero(cuda):
+    """A split product whose every tile is zero (-0.0 among them) skips
+    every stage of every split and writes +0.0, bit for bit."""
+    a = torch.zeros(49, 1152, dtype=torch.bfloat16, device="cuda")
+    a[:, 128:256] = -0.0
+    b = torch.randn(1152, 256, device="cuda").to(torch.bfloat16)
+    assert kz.tiled_plan(49, 1152, 256, 128, 128).splits > 1
+    out, gated = kz.zvg_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert bool((gated == 1).all())
+    assert not out.view(torch.int32).any()
+
+
+def _pair_operands(M, K, N, xdt, wdt, dead, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=g)
+    w = torch.randn(K, N, generator=g) * K ** -0.5
+    x[list(dead)] = 0.0
+    if M > 2:
+        x[2] = -0.0                  # live: its bits are not all zero
+    return x.to(xdt).cuda(), w.to(wdt).cuda()
+
+
+@pytest.mark.parametrize("xdt,wdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)],
+    ids=["bf16-bf16", "bf16-f32", "f32-bf16", "f32-f32"])
+@pytest.mark.parametrize("M,K,N,dead", [
+    (8, 1024, 1024, (1, 3, 6)),      # dead rows among live ones, 8 rows
+    (8, 2816, 1024, (0, 7)),         # ffn down, split 16 ways
+    (9, 300, 129, (4, 8)),           # two passes of rows
+    (4, 1024, 151936, (3,))], ids=str)   # the lm head, unsplit
+def test_gated_row_matmul_rows_passes_and_dtype_pairs(cuda, M, K, N, dead,
+                                                      xdt, wdt):
+    x, w = _pair_operands(M, K, N, xdt, wdt, dead, seed=M + K + N)
+    before = kz.gated_row_matmul_cuda.launches
+    got = kz.gated_row_matmul_cuda(x, w)
+    assert kz.gated_row_matmul_cuda.launches == before + 1
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == plain.dtype and got.shape == (M, N)
+    assert not got[list(dead)].float().view(torch.int32).any()
+    _assert_product(got, plain, x, w)
 
 
 def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -150,3 +150,46 @@ def test_operands_the_kernels_do_not_take_raise():
     out = ref.gated_row_matmul_ref(torch.ones(2, 3, dtype=torch.bfloat16),
                                    torch.ones(3, 4))
     assert out.dtype == torch.float32
+
+
+#: ``(K, N)`` of Qwen1.5-0.5B's decode matmuls: wq/wk/wv/wo, ffn up and
+#: gate, ffn down, the lm head
+QWEN_SHAPES = [(1024, 1024), (1024, 2816), (2816, 1024), (1024, 151936)]
+
+
+@pytest.mark.parametrize("K,N", QWEN_SHAPES, ids=str)
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16-w", "f32-w"])
+def test_decode_plan_covers_k_once_and_fills_the_card(K, N, itemsize):
+    """Every k row lies in exactly one split, each a multiple of 8 rows no
+    longer than the rows a block stages x for, at most a cluster's worth
+    of splits; the grid reaches the SMs or the plan says why not. The
+    plan is the same at 4 rows (the slot step) and 8 (the paged one): it
+    depends on K, N and the weights' type only."""
+    plan = kernel.decode_plan(K, N, itemsize)
+    kps = plan.k_per_split
+    ranges = [(s * kps, min(K, (s + 1) * kps)) for s in range(plan.splits)]
+    assert len(ranges) == plan.splits <= kernel.DECODE_MAX_SPLITS
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (_, end), (start, _) in zip(ranges, ranges[1:]):
+        assert end == start
+    if plan.splits > 1:
+        assert plan.k_per_split % 8 == 0
+    assert all(0 < end - start <= kernel.DECODE_MAX_K
+               for start, end in ranges)
+    assert plan.cols == 32 * 16 // itemsize
+    assert plan.tiles == -(-N // plan.cols)
+    assert plan.blocks == plan.tiles * plan.splits
+    assert (plan.blocks >= kernel.SMS) == (plan.reason is None)
+
+
+def test_decode_plan_leaves_the_lm_head_whole_and_splits_the_rest():
+    """The lm head's 594 column tiles fill the card unsplit; the 1024- and
+    2816-column layers split K across a cluster."""
+    head = kernel.decode_plan(1024, 151936, 2)
+    assert (head.splits, head.k_per_split, head.blocks) == (1, 1024, 594)
+    for K, N in QWEN_SHAPES[:3]:
+        plan = kernel.decode_plan(K, N, 2)
+        assert plan.splits > 1 and plan.tiles < kernel.DECODE_BLOCKS
+    with pytest.raises(ValueError, match="takes K up to"):
+        kernel.decode_plan(kernel.DECODE_MAX_SPLITS * kernel.DECODE_MAX_K
+                           + 8, 64, 2)

@@ -20,7 +20,9 @@ from repro.kernels.zvg_matmul.ref import zvg_matmul_ref as j_zvg_matmul_ref
 from repro_torch.kernels import zvg_matmul
 from repro_torch.kernels.zvg_matmul.cases import (TILED_CASES, TILED_TOL,
                                                   tiled_case, tiled_error)
-from repro_torch.kernels.zvg_matmul.kernel import zvg_matmul_cuda
+from repro_torch.kernels.zvg_matmul.kernel import (SMS, TILED_MAX_SPLITS,
+                                                   tiled_plan, tma_operands,
+                                                   zvg_matmul_cuda)
 from repro_torch.kernels.zvg_matmul.ref import row_is_live, zvg_matmul_ref
 
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -93,3 +95,73 @@ def test_entries_raise_on_what_they_do_not_take():
         zvg_matmul(a, b[:5])
     with pytest.raises(ValueError, match="positive"):
         zvg_matmul(a, b, block_k=0)
+
+
+#: ``(M, K, N, bm, bk)``: ResNet50's site shapes at 224 px (the stem, the
+#: 56 x 56 to 7 x 7 stages, the classifier; ``s4b1.c2`` is 49 x 4608 x
+#: 512), the quickstart's, and the block sweep of ``TILED_CASES``
+PLAN_SHAPES = (
+    (12544, 147, 64, 128, 128), (3136, 64, 64, 128, 128),
+    (3136, 576, 64, 128, 128), (3136, 64, 256, 128, 128),
+    (784, 1152, 128, 128, 128), (784, 128, 512, 128, 128),
+    (196, 2304, 256, 128, 128), (196, 256, 1024, 128, 128),
+    (49, 4608, 512, 128, 128), (49, 512, 2048, 128, 128),
+    (1, 2048, 1000, 128, 128), (128, 512, 128, 128, 128),
+    (192, 320, 192, 64, 64), (192, 320, 192, 64, 256),
+    (192, 320, 192, 64, 16), (130, 257, 70, 128, 128),
+)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk", PLAN_SHAPES, ids=str)
+def test_tiled_plan_splits_k_in_whole_tiles(M, K, N, bm, bk):
+    """Every k lies in exactly one split, each split is a run of whole bk
+    tiles (so a skipped stage lies in one gated tile), the output tile
+    divides bm, and the grid fills the card or the plan says why not."""
+    plan = tiled_plan(M, K, N, bm, bk)
+    step = plan.tiles_per_split * bk
+    ranges = [(s * step, min(K, (s + 1) * step)) for s in range(plan.splits)]
+    assert len(ranges) == plan.splits <= TILED_MAX_SPLITS
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (_, end), (start, _) in zip(ranges, ranges[1:]):
+        assert end == start
+    for start, end in ranges:
+        assert start % bk == 0 and start < end
+        assert (end - start) % bk == 0 or end == K
+    assert bm % plan.tile_m == 0 and plan.tile_n in (64, 128)
+    out_tiles = -(-M // plan.tile_m) * -(-N // plan.tile_n)
+    assert plan.blocks == out_tiles * plan.splits
+    assert (plan.blocks >= SMS) == (plan.reason is None)
+    if out_tiles >= SMS:
+        assert plan.splits == 1
+
+
+def test_the_7x7_site_splits_across_a_cluster():
+    """``s4b1.c2`` (49 x 4608 x 512): 8 output tiles would leave the card
+    idle; K splits 12 ways in runs of three 128-tiles (96 blocks), as many
+    as a cluster of at most 16 allows, and the plan says so."""
+    plan = tiled_plan(49, 4608, 512, 128, 128)
+    assert (plan.tile_m, plan.tile_n) == (64, 64)
+    assert (plan.splits, plan.tiles_per_split, plan.blocks) == (12, 3, 96)
+    assert "cluster" in plan.reason
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_tma_operands_zero_pad_k_and_n(dtype):
+    """K = 147 (the stem's) and N = 70 have row strides TMA cannot read:
+    the copies are padded with zeros to 152 and 72, and the plain version
+    on them gives the same gated map and, in the first N columns, the same
+    product; aligned operands pass through as they are."""
+    a, b = tiled_case(130, 147, 70, 0.5, None, dtype, seed=3, device="cpu")
+    ap, bp = tma_operands(a, b)
+    assert tuple(ap.shape) == (130, 152) and tuple(bp.shape) == (152, 72)
+    assert torch.equal(ap[:, :147], a) and not ap[:, 147:].any()
+    assert torch.equal(bp[:147, :70], b) and not bp[147:].any()
+    assert not bp[:, 70:].any()
+    out, gated = zvg_matmul_ref(a, b)
+    pout, pgated = zvg_matmul_ref(ap, bp)
+    assert torch.equal(gated, pgated)
+    assert torch.equal(out, pout[:, :70])
+    a, b = tiled_case(64, 256, 64, 0.5, None, dtype, seed=3, device="cpu")
+    ap, bp = tma_operands(a, b)
+    assert ap is a and bp is b
