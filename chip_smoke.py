@@ -46,12 +46,19 @@ kernels' launch counts set to 0 just before it and read just after:
   plain time.
 
 The build prints ptxas's registers, shared memory and spills for the
-streaming decode matmul (K2) and the wgmma tile-gated matmul (K7), and
-K7's library must hold wgmma and TMA-load instructions in its SASS.
-Before the main paths, each kernel is held against its plain PyTorch
-version on the card (counters bitwise, products within a stated
-tolerance); after
-them, each is timed at its main path's shapes with CUDA events. The line
+streaming decode matmul (K2), K3's chunked counter walk, the split-KV
+paged attention (K4) and the wgmma tile-gated matmul (K7), and K7's
+library must hold wgmma and TMA-load instructions in its SASS; then the
+plans of K3 (product split, walk chunks) and K4 (position split) at the
+serving shapes. Before the main paths, each kernel is held against its
+plain PyTorch version on the card (counters bitwise, products within a
+stated tolerance; K4 in bfloat16 also per element against the float32
+plain version, which must catch a planted fault in all 80 cases), and
+so are the operands the kernels once refused (K7 at any blocks, K2 on
+int8 and at K past 32768); after
+them, each is timed at its main path's shapes with CUDA events and the
+profiler (K3 per call and per launch, beside K2 alone at K3's product
+shape; K4 per launch and per paged step beside gather + SDPA). The line
 before the last lists the kernels as JSON; the last line is ``{"ok":
 true, "device": {...}}``. Without a card, or without the rest of the
 repository beside it, it exits non-zero and prints no result.
@@ -99,7 +106,10 @@ K7_REPLACES = "src/repro/kernels/zvg_matmul/kernel.py:70"
 #: on an H100; the worst case is K * 2**-24), REL the bfloat16 output's
 #: rounding (half a unit in the last place, 2**-9, doubled for room);
 #: results below the smallest normal float32 (2**-126) count as zero.
-PRODUCT_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-5)}
+#: int8 x int8 (no served path runs it) is exact: equal to the plain
+#: version, ``x @ w`` mod 256.
+PRODUCT_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-5),
+               torch.int8: (0.0, 0.0)}
 #: a greedy token of the kernel run may differ from the plain run's only
 #: where the plain run's top two logits lie closer than this: two bf16
 #: units in the last place at the logits' magnitude (|logit| < 64)
@@ -130,9 +140,10 @@ PAGED_STOCHASTIC = (3, 7, 11, 14)   # temperature 0.8, top-k 5
 PAGED_SYSTEM = 64                   # shared system-prompt tokens
 
 
-#: the kernels this slice redesigned, by library: their ptxas lines
-#: (registers, shared memory, spills) are printed after the build
-REDESIGNED = {"zvg_matmul": ("stream_kernel",),
+#: the redesigned kernels, by library: their ptxas lines (registers,
+#: shared memory, spills) are printed after the build
+REDESIGNED = {"zvg_matmul": ("stream_kernel", "walk_kernel"),
+              "paged_attention": ("split_attention_kernel",),
               "zvg_tiled_matmul": ("wgmma_kernel", "gate_kernel")}
 
 
@@ -169,6 +180,20 @@ def sass_check(lib: Path) -> None:
                              f"loads: {counts}")
     log(f"zvg_tiled_matmul SASS: {json.dumps(counts)} (wgmma on TMA-fed "
         f"tiles)")
+
+
+def log_plans() -> None:
+    """The plans of the redesigned serving kernels at their main path's
+    shapes: K3's product split and counter chunks (Qwen1.5-0.5B's
+    accountant: 4 x 1024 x 256, float32 weights), K4's split (8 rows, 16
+    KV heads, 16 pages of 16)."""
+    from repro_torch.kernels.power_counters.kernel import chunk_plan
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+
+    log(f"plan K3 product: {kz.decode_plan(1024, 256, 4)}")
+    log(f"plan K3 walk: {chunk_plan(1024)} (32-lane groups: 4 west + 8 "
+        f"north, {12 * chunk_plan(1024).cluster} blocks)")
+    log(f"plan K4: {kz.paged_plan(SERVE_CACHE // PAGE, PAGE, PAGED_ROWS, 16)}")
 
 
 def log(msg: str) -> None:
@@ -440,6 +465,9 @@ def phase_decode_kernel_cases() -> tuple[float, float]:
         bic_variants=(bic.MANTISSA_ONLY,))
     full = CounterSpec(bic_variants=tuple(bic.NAMED_SEGMENTS.values()),
                        zvg=True, hist=True)
+    seg31 = CounterSpec(bic_variants=tuple((1 << b,) for b in range(15))
+                        + tuple(((1 << b) | (1 << ((b + 3) % 16)),)
+                                for b in range(16)), zvg=True, hist=True)
     cases = [(4, 1024, 256, torch.bfloat16, torch.float32, *menu, 16, 16),
              (4, 1024, 256, torch.bfloat16, torch.bfloat16, full, full, 16,
               16),
@@ -448,7 +476,12 @@ def phase_decode_kernel_cases() -> tuple[float, float]:
               5, 32),
              (7, 100, 7, torch.bfloat16, torch.float32, *menu, 40, 3),
              (5, 257, 300, torch.float32, torch.float32, full, full, 16,
-              16)]
+              16),
+             # the chunked walk past one chunk a thread, 31 segments
+             (9, 4100, 40, torch.bfloat16, torch.float32, seg31, seg31, 16,
+              16),
+             (1, 1023, 256, torch.bfloat16, torch.float32, menu[0], seg31,
+              16, 16)]
     err3 = 0.0
     for B, K, N, adt, wdt, wspec, nspec, lanes_w, cols in cases:
         a, _ = decode_operands(B, K, N, adt, gen)
@@ -689,14 +722,18 @@ def phase_paged_kernel_cases() -> tuple[dict, float, dict]:
     """K4 against its plain version on the card over the case list, once
     for each of ``PAGED_SEEDS``: ``rep`` 1 to 8, hd 16 to 128, ps 8, 16,
     32, B 1 to 8, softcap 0 and 5, bfloat16 and float32, and the serving
-    shape. Beside each case, a planted fault: the kernel with each row's
-    last position cut off (``lengths - 1`` where above 1), which the
-    tolerance must catch in some case. Returns the largest relative error
-    per dtype, the largest absolute one, and the planted fault's relative
-    error per dtype (its smallest and largest over the cases, and in how
-    many cases the tolerance catches it)."""
+    shape. bfloat16 outputs are also held per element against the float32
+    plain version of the same inputs (``cases.bf16_ulp_error``). Beside
+    each case, a planted fault: the kernel with each row's last position
+    cut off (``lengths - 1`` where above 1), which the checks must catch
+    in every case. Returns the largest relative error per dtype, the
+    largest absolute one, and the planted fault's readings per dtype (its
+    smallest and largest relative error, in how many cases the checks
+    catch it, and of how many)."""
     from repro_torch.kernels.zvg_matmul import kernel, ref
-    from repro_torch.kernels.zvg_matmul.cases import (ATTN_TOL, PAGED_CASES,
+    from repro_torch.kernels.zvg_matmul.cases import (ATTN_BF16_ABS,
+                                                      ATTN_TOL, PAGED_CASES,
+                                                      bf16_ulp_error,
                                                       paged_case,
                                                       relative_error)
     from repro_torch.models.attention import decode_attention
@@ -704,6 +741,8 @@ def phase_paged_kernel_cases() -> tuple[dict, float, dict]:
     names = {d: str(d).split(".")[-1] for d in ATTN_TOL}
     err = dict.fromkeys(names.values(), 0.0)
     fault = {n: [] for n in names.values()}
+    caught = dict.fromkeys(names.values(), 0)
+    ulp_err, fault_ulp = 0.0, []
     abs_err = 0.0
     for seed in PAGED_SEEDS:
         for i, (*shape, cap) in enumerate(PAGED_CASES):
@@ -724,25 +763,51 @@ def phase_paged_kernel_cases() -> tuple[dict, float, dict]:
                     raise AssertionError(f"{ctx}: relative error {rel!r} "
                                          f"over {ATTN_TOL[dtype]}")
                 err[name] = max(err[name], rel)
+                want32 = None
+                if dtype == torch.bfloat16:
+                    # per element, against the float32 plain version of
+                    # the same bfloat16 inputs
+                    want32 = ref.fused_paged_attention_ref(
+                        *[t.float() for t in (q, kp, vp)], pages, lengths,
+                        decode_attention, softcap=cap)
+                    u = bf16_ulp_error(got, want32)
+                    if not u <= 1:
+                        raise AssertionError(f"{ctx}: {u!r} bf16 units "
+                                             f"from the float32 plain "
+                                             f"version")
+                    ulp_err = max(ulp_err, u)
                 if (lengths > 1).any():
                     cut = kernel.fused_paged_attention_cuda(
                         q, kp, vp, pages, lengths - (lengths > 1).int(),
                         softcap=cap)
                     fault[name].append(relative_error(cut, want))
+                    hit = fault[name][-1] > ATTN_TOL[dtype]
+                    if want32 is not None:
+                        fault_ulp.append(bf16_ulp_error(cut, want32))
+                        hit = hit or fault_ulp[-1] > 1
+                    caught[name] += hit
     fault = {name: {"min": min(fault[name]), "max": max(fault[name]),
-                    "caught": sum(f > ATTN_TOL[d] for f in fault[name]),
-                    "of": len(fault[name])} for d, name in names.items()}
+                    "caught_by_rel_tol": sum(f > ATTN_TOL[d]
+                                             for f in fault[name]),
+                    "caught": caught[name], "of": len(fault[name])}
+             for d, name in names.items()}
+    fault["bfloat16"]["ulp_min"] = min(fault_ulp)
     for dtype, name in names.items():
-        if not fault[name]["caught"]:
-            raise AssertionError(f"the tolerance {ATTN_TOL[dtype]} misses a "
-                                 f"planted fault in {name}: {fault[name]}")
+        if fault[name]["caught"] != fault[name]["of"]:
+            raise AssertionError(f"the checks miss a planted fault in "
+                                 f"{name}: {fault[name]}")
+        log(f"fused_paged_attention planted fault ({name}): caught "
+            f"{fault[name]['caught']} of {fault[name]['of']}")
     log(f"fused_paged_attention vs plain on the card: {len(PAGED_CASES)} "
         f"cases x 2 dtypes x {len(PAGED_SEEDS)} seeds (trash-page and "
         f"shared-page rows, lengths 1, ragged and full), max relative error "
         f"{json.dumps(err)} within "
         f"{json.dumps({names[d]: t for d, t in ATTN_TOL.items()})}; max "
-        f"|kernel - plain| {abs_err!r}; planted fault (last position cut "
-        f"off) relative error {json.dumps(fault)}")
+        f"|kernel - plain| {abs_err!r}; bf16 per element within "
+        f"{ulp_err!r} of one bf16 unit (+ {ATTN_BF16_ABS} of the largest) "
+        f"of the float32 plain version; planted fault (last position cut "
+        f"off) {json.dumps(fault)}")
+    fault["bf16_ulp_err"] = ulp_err
     return err, abs_err, fault
 
 
@@ -1022,6 +1087,83 @@ def phase_tiled_kernel_cases() -> tuple[dict, float]:
         f"{json.dumps({names[d]: t for d, t in TILED_TOL.items()})}; max "
         f"|kernel - plain| {abs_err!r}")
     return err, abs_err
+
+
+def phase_fault6() -> dict:
+    """The operands the card kernels refused before (ROADMAP fault 6),
+    each held against its plain version on the card: K7 at blocks that
+    are not multiples of its row tile or k stage, in both dtypes (the
+    gated map equal, the product within ``TILED_TOL``); K2 on int8 with
+    each partner at 4, 8 and 9 rows (int8 x int8 equal, x @ w mod 256;
+    the float pairs within ``PRODUCT_TOL``; gated rows zero); K2 at K =
+    40000 and 65536, past what 16 splits stage at once."""
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.kernels.zvg_matmul import ref
+    from repro_torch.kernels.zvg_matmul.cases import (TILED_TOL, tiled_case,
+                                                      tiled_error)
+
+    out = {"k7_blocks": [], "k2_int8": [], "k2_long_k": []}
+    for M, K, N, bm, bk in ((70, 90, 40, 32, 8), (200, 130, 24, 96, 24),
+                            (230, 150, 33, 200, 40), (49, 1152, 256, 32, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = tiled_case(M, K, N, 0.5, None, dtype, seed=M + bk)
+            a[:bm, :bk] = 0
+            got, gated = kz.zvg_matmul_cuda(a, b, bm, 128, bk)
+            want, want_gated = ref.zvg_matmul_ref(a, b, bm, bk)
+            torch.cuda.synchronize()
+            err = tiled_error(got, want)
+            if not (torch.equal(gated, want_gated)
+                    and err <= TILED_TOL[dtype]):
+                raise AssertionError(f"K7 at blocks ({bm}, {bk}) {dtype}: "
+                                     f"map equal "
+                                     f"{torch.equal(gated, want_gated)}, "
+                                     f"error {err!r}")
+            out["k7_blocks"].append({"M": M, "K": K, "N": N, "bm": bm,
+                                     "bk": bk, "dtype": str(dtype),
+                                     "rel_err": err})
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for M in (4, 8, 9):
+        for wdt in (torch.int8, torch.bfloat16, torch.float32):
+            K, N = 1024, 1024
+            x = torch.randint(-128, 128, (M, K), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            x[1] = 0
+            w = (torch.randint(-128, 128, (K, N), generator=gen,
+                               device="cuda", dtype=torch.int8)
+                 if wdt == torch.int8 else
+                 (torch.randn(K, N, generator=gen, device="cuda")
+                  * K ** -0.5).to(wdt))
+            got = kz.gated_row_matmul_cuda(x, w)
+            plain = ref.gated_row_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            ctx = f"K2 int8 x {wdt} {M}x{K}x{N}"
+            if got.dtype != plain.dtype or got[1].float().abs().max() != 0:
+                raise AssertionError(f"{ctx}: dtype {got.dtype} or a "
+                                     f"gated row not zero")
+            if wdt == torch.int8:   # PRODUCT_TOL[int8]: exact
+                if not torch.equal(got, plain):
+                    raise AssertionError(f"{ctx}: differs from x @ w mod "
+                                         f"256")
+                e = 0.0
+            else:
+                e = check_product(got, plain, x, w, ctx)
+            out["k2_int8"].append({"M": M, "w": str(wdt), "max_abs_err": e})
+    for K in (40000, 65536):
+        x, w = decode_operands(4, K, 256, torch.bfloat16, gen)
+        got = kz.gated_row_matmul_cuda(x, w)
+        plain = ref.gated_row_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        e = check_product(got, plain, x, w, f"K2 4x{K}x256")
+        out["k2_long_k"].append({"K": K, "splits": kz.decode_plan(
+            K, 256, 2).splits, "k_per_split": kz.decode_plan(
+            K, 256, 2).k_per_split, "max_abs_err": e})
+    log(f"fault 6 closed on the card: K7 at blocks (32, 8), (96, 24), "
+        f"(200, 40) and a split (32, 8) in both dtypes, maps equal, max "
+        f"relative error {max(r['rel_err'] for r in out['k7_blocks'])!r}; "
+        f"K2 int8 with int8, bf16 and f32 at 4, 8, 9 rows (int8 x int8 "
+        f"equal); K2 at K = 40000 and 65536 "
+        f"({json.dumps(out['k2_long_k'])})")
+    return out
 
 
 def phase_quickstart() -> tuple[dict, int, int]:
@@ -1358,24 +1500,39 @@ def time_cycle(fns, reps: int) -> float:
     return start.elapsed_time(end) / (reps * len(fns))
 
 
-def device_ms(fns) -> float:
+def device_ms(fns, by_kernel: bool = False):
     """Mean device time per call of ``fns`` run once each: the durations
     of the kernels they launch, from ``torch.profiler`` (CUPTI). Unlike
     :func:`time_cycle` it leaves out the gaps where the card waits for
-    the host, which set the time of a stream of small launches."""
+    the host, which set the time of a stream of small launches. With
+    ``by_kernel``, also each kernel's share by name (the last ``::`` part
+    of its name before any template arguments)."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
-            fn()
-        torch.cuda.synchronize()
-    total = sum(evt.time_range.elapsed_us() for evt in prof.events()
-                if evt.device_type == torch.autograd.DeviceType.CUDA)
+    names: dict[str, float] = {}
+    # a profile that delivers no device events at all (CUPTI does, rarely,
+    # over the dozens of profiles a run takes) is taken once more
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                key = evt.name.split("<")[0].split("::")[-1].split("(")[0]
+                key = key.strip() or evt.name[:40]
+                names[key] = names.get(key, 0.0) + evt.time_range.elapsed_us()
+        if names:
+            break
+    total = sum(names.values())
     if not total:
         raise AssertionError("the profiler saw no device time")
+    if by_kernel:
+        return total / 1e3 / len(fns), {k: v / 1e3 / len(fns)
+                                        for k, v in names.items()}
     return total / 1e3 / len(fns)
 
 
@@ -1510,10 +1667,13 @@ def phase_serving_timing(cfg, eng) -> dict:
         args = [(a, w, wspec, nspec, geom.rows, geom.cols) for a, w in ops3]
         kern3 = [lambda a=a: kernel.fused_matmul_counters_cuda(*a)
                  for a in args]
-        ms3 = device_ms(kern3)
+        ms3, parts3 = device_ms(kern3, by_kernel=True)
         events3 = time_cycle(kern3, 20)
         plain3 = device_ms([lambda a=a: ref.fused_matmul_counters_ref(*a)
                             for a in args])
+        # K2 alone at K3's product shape, on the same operands
+        k2_at3 = device_ms([lambda a=a, w=w: kernel.gated_row_matmul_cuda(
+            a, w) for a, w in ops3])
         a, w = ops3[0]
         B, K = a.shape
         N = w.shape[1]
@@ -1524,6 +1684,7 @@ def phase_serving_timing(cfg, eng) -> dict:
         ops = (2 * B * K * N + B * K * geom.rows * wspec.n_rows
                + K * Np * nspec.n_rows)
         k3 = {"ms": ms3, "plain_ms": plain3, "events_ms": events3,
+              "ms_by_kernel": parts3, "k2_at_product_shape_ms": k2_at3,
               "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
               "ops_ms": ops / ALU_OPS_PER_S * 1e3,
               "shape": {"B": B, "K": K, "N": N, "lanes_w": geom.rows,
@@ -1531,7 +1692,9 @@ def phase_serving_timing(cfg, eng) -> dict:
         log(f"fused_matmul_counters {B}x{K}x{N} ({a.dtype} x {w.dtype}), "
             f"device ms per launch: kernel {ms3:.4f}, plain {plain3:.4f}, "
             f"bound {max(k3['bytes_ms'], k3['ops_ms']):.5f}; kernel by "
-            f"CUDA events {events3:.4f}")
+            f"CUDA events {events3:.4f}; by kernel "
+            f"{json.dumps({k: round(v, 5) for k, v in parts3.items()})}; "
+            f"gated_row_matmul alone at the product's shape {k2_at3:.5f}")
 
         # the accountant's whole sampled-step work, host clock
         torch.cuda.synchronize()
@@ -1642,6 +1805,7 @@ def phase_paged_timing(cfg, eng, reqs) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.zvg_matmul import kernel, ref
+    from repro_torch.kernels.zvg_matmul.cases import PAGED_CASES, paged_case
     from repro_torch.models import lm
     from repro_torch.models.attention import decode_attention
 
@@ -1686,6 +1850,17 @@ def phase_paged_timing(cfg, eng, reqs) -> dict:
              "bytes_ms": paged_attention_bytes(pools[0][0], q, pages, lens)
              / HBM_BYTES_PER_S * 1e3,
              "ops_ms": 4 * sum(lengths) * h * hd / ALU_OPS_PER_S * 1e3}
+        # the PAGED_CASES case of rep 8, hd 128 (bf16)
+        case = next(c for c in PAGED_CASES if c[2] == 8 and c[3] == 128)
+        q8, kp8, vp8, pg8, ln8 = paged_case(*case[:6], torch.bfloat16,
+                                            seed=0)
+        t["rep8_hd128"] = {
+            "case": case, "plan": kernel.paged_plan(
+                case[5], case[4], case[0], case[1]).__dict__,
+            "ms": device_ms([lambda: kernel.fused_paged_attention_cuda(
+                q8, kp8, vp8, pg8, ln8, softcap=case[6])] * 3)}
+        log(f"fused_paged_attention at the rep-8, hd-128 case {case}: "
+            f"device ms per launch {t['rep8_hd128']['ms']:.5f}")
         per_step = cfg.n_layers
         bound = max(t["bytes_ms"], t["ops_ms"])
         log(f"fused_paged_attention {B} rows x {h} heads x hd {hd}, lengths "
@@ -1751,12 +1926,14 @@ def main() -> int:
         for line in ptxas_summary(name, kernels):
             log(f"ptxas {name}: {line}")
     sass_check(paths["zvg_tiled_matmul"])
+    log_plans()
 
     err = phase_kernel_cases()
     err2, err3 = phase_decode_kernel_cases()
     rel4, err4, fault4 = phase_paged_kernel_cases()
     err5, err6 = phase_stream_kernel_cases()
     rel7, err7 = phase_tiled_kernel_cases()
+    fault6 = phase_fault6()
     designs = tuple(D.named_designs().values())
     layers, launches, _ = run_main_path("resnet50", designs, 54)
     sites, e = check_sites("resnet50", layers, designs)
@@ -1786,6 +1963,10 @@ def main() -> int:
     k5, k6, k7 = stream["k5"], stream["k6"], stream["k7"]
     n_sites = len(site_pass["sites"])
 
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    kz_plan = kz.paged_plan(SERVE_CACHE // PAGE, PAGE, PAGED_ROWS,
+                            cfg.n_kv_heads).__dict__
+
     def bound(t):
         return {"bound_ms": max(t["bytes_ms"], t["ops_ms"]),
                 "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
@@ -1812,7 +1993,10 @@ def main() -> int:
         "source": ZVG_SOURCE,
         "replaces": K2_REPLACES,
         "launches": serve_launches["gated_row_matmul_cuda"],
+        "launches_paged_b": paged["b"]["launches_all"][
+            "gated_row_matmul_cuda"],
         "max_abs_err": err2,
+        "fault6": {"int8": fault6["k2_int8"], "long_k": fault6["k2_long_k"]},
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
         **bound(k2),
@@ -1831,14 +2015,18 @@ def main() -> int:
         "source": ZVG_SOURCE,
         "replaces": K3_REPLACES,
         "launches": serve_launches["fused_matmul_counters_cuda"],
+        "launches_paged_b": paged["b"]["launches_all"][
+            "fused_matmul_counters_cuda"],
         "max_abs_err": err3,
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         **bound(k3),
         "library_ms": None,
         "events_ms": k3["events_ms"],
-        "ms_over": "one launch, device time (profiler); events_ms by CUDA "
-                   "events",
+        "ms_over": "one call (two launches: the product and the counter "
+                   "walk), device time (profiler); events_ms by CUDA events",
+        "ms_by_kernel": k3["ms_by_kernel"],
+        "k2_at_product_shape_ms": k3["k2_at_product_shape_ms"],
         "shape": k3["shape"],
         "accounting_step_ms": st["accounting_ms"],
         "profiled": profiled.get("accountant step"),
@@ -1860,6 +2048,8 @@ def main() -> int:
         "library_ms": None,
         "yardstick_ms": k4["yardstick_ms"],
         "yardstick": "gather_pages + F.scaled_dot_product_attention",
+        "rep8_hd128": k4["rep8_hd128"],
+        "plan": kz_plan,
         "events_ms": k4["events_ms"],
         "ms_over": "one launch at the paged serving shape, device time "
                    "(profiler); events_ms by CUDA events",
@@ -1912,6 +2102,7 @@ def main() -> int:
         "launches": quick_launches["zvg_matmul_cuda"],
         "launches_resnet50_sites": site_launches["zvg_matmul_cuda"],
         "max_abs_err": err7,
+        "fault6_blocks": fault6["k7_blocks"],
         "max_rel_err": rel7,
         "rel_tol": {str(d).split(".")[-1]: v for d, v in TILED_TOL.items()},
         "resnet50_rel_err": site_pass["rel_err"],

@@ -31,18 +31,23 @@
 //     row-major, so wgmma reads B transposed), both loaded by TMA
 //     (cp.async.bulk.tensor, one mbarrier per stage) with 128-byte
 //     swizzle (A: the swizzle of its kS-wide rows, 64/32-byte for kS 32/16).
-//     One producer warp reads the gated map's row for its M tile and
-//     issues loads only for the stages of live tiles. One or two consumer
+//     One producer warp reads the gated map and issues loads only for the
+//     live stages; a stage is skipped where every [bm, bk] tile that its
+//     rows and k touch is gated (stage_gated). One or two consumer
 //     warpgroups (64 rows each) run wgmma.mma_async m64n{tile_n}k16 (bf16
 //     in, float32 accumulators in registers) on each stage that arrives
 //     and add the stage's sum into a second float32 accumulator, so no sum
 //     runs longer than kS products inside the tensor core. kS (64, 32 or
-//     16) is the largest that divides bk and tile_m divides bm, so every
-//     skipped stage lies inside one gated tile. A block whose every stage
-//     is gated writes +0.0.
+//     16) is the largest that divides bk (64 where none does), and tile_m
+//     is 128 only where it divides bm: on the main path's 128-blocks every
+//     skipped stage lies inside one gated tile and the kernel skips what
+//     the map marks, and at any other block (the JAX package takes any)
+//     it skips less but computes the same product. A block whose every
+//     stage is gated writes +0.0.
 //   * Split-K where the output tiles number fewer than the SMs (the
 //     planner, kernels/zvg_matmul/kernel.py::tiled_plan, picks the split
-//     as a whole number of bk tiles, at most 16): the splits of an output
+//     as whole bk tiles rounded up to whole stages, at most 16): the
+//     splits of an output
 //     tile form a thread-block cluster. Each sends its float32 sums of
 //     every row to the block that owns the row (distributed shared
 //     memory), and after one cluster barrier each block sums its share of
@@ -59,7 +64,7 @@
 //
 // Float32 operands keep the first version's SIMT kernel (tiled_kernel:
 // 64 x 64 output tiles, k steps of 16 staged in shared memory, 4 x 4 fmaf
-// patches a thread). They run in no main path, only in the test cases,
+// patches a thread, a step skipped by the same rule as a stage). They run in no main path, only in the test cases,
 // and a float32 product on the tensor cores would be TF32, about three
 // decimal digits, far outside the stated tolerance.
 
@@ -107,7 +112,7 @@ gate_kernel(const T* __restrict__ a, int M, int K, int bm, int bk, bool vec,
   const int m0 = mb * bm, k0 = kb * bk;
   const int rows = min(bm, M - m0), cols = min(bk, K - k0);
   int live = 0;
-  if (vec) {  // 16-byte loads: K a multiple of 16 / sizeof(T), bk of 16
+  if (vec) {  // 16-byte loads: K and bk multiples of 16 / sizeof(T)
     constexpr int kV = 16 / sizeof(T);
     const int per_row = cols / kV;
     for (int i = threadIdx.x; i < rows * per_row && !live; i += kThreads) {
@@ -129,6 +134,22 @@ gate_kernel(const T* __restrict__ a, int M, int K, int bm, int bk, bool vec,
     gated[static_cast<size_t>(mb) * gridDim.x + kb] = live ? 0 : 1;
 }
 
+// Whether every [bm, bk] tile of the map that a block's rows [m0, m1) and
+// one k stage [k0, k1) touch is gated, for the warp (every lane returns the
+// same). On the main path's blocks (bm and bk multiples of the row tile and
+// the stage) that is one entry of the map; smaller or unaligned blocks
+// touch several, and a stage is skipped only where all are gated.
+__device__ __forceinline__ bool stage_gated(const int32_t* __restrict__ gated,
+                                            int Kb, int bm, int bk, int m0,
+                                            int m1, int k0, int k1) {
+  const int mb0 = m0 / bm, kb0 = k0 / bk;
+  const int nm = (m1 - 1) / bm - mb0 + 1, nk = (k1 - 1) / bk - kb0 + 1;
+  bool live = false;
+  for (int i = threadIdx.x % 32; i < nm * nk && !live; i += 32)
+    live = !gated[static_cast<size_t>(mb0 + i / nk) * Kb + kb0 + i % nk];
+  return !__any_sync(0xFFFFFFFFu, live);
+}
+
 // ---------------------------------------------------------- float32 route
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -139,10 +160,12 @@ tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int tid = threadIdx.x;
   const int tx = tid % (kTN / kPatch), ty = tid / (kTN / kPatch);
   const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  const int32_t* gate_row = gated + static_cast<size_t>(m0 / bm) * Kb;
+  const int m1 = min(M, m0 + kTM);
   float acc[kPatch][kPatch] = {};
   for (int k0 = 0; k0 < K; k0 += kTK) {
-    if (gate_row[k0 / bk]) continue;   // the same for every thread
+    // the same for every thread
+    if (stage_gated(gated, Kb, bm, bk, m0, m1, k0, min(K, k0 + kTK)))
+      continue;
 #pragma unroll
     for (int i = 0; i < kTM * kTK / kThreads; ++i) {
       const int e = tid + i * kThreads;
@@ -316,7 +339,7 @@ __global__ void __launch_bounds__(Tile<NWG, BN, KS>::kThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
              const __grid_constant__ CUtensorMap map_b,
              const int32_t* __restrict__ gated, int M, int K, int N, int bm,
-             int bk, int Kb, int tiles_per_split, float* __restrict__ out) {
+             int bk, int Kb, int k_per_split, float* __restrict__ out) {
   using T = Tile<NWG, BN, KS>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -332,9 +355,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   const int share = (T::kBM + splits - 1) / splits;   // rows a block sums
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * T::kBM;
-  const int kb0 = split * tiles_per_split;
-  const int kb1 = min(Kb, kb0 + tiles_per_split);
-  const int32_t* gate_row = gated + static_cast<size_t>(m0 / bm) * Kb;
+  const int m1 = min(M, m0 + T::kBM);
+  // the split's k range, whole stages: [ks0, ks1)
+  const int ks0 = split * k_per_split, ks1 = min(K, ks0 + k_per_split);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -352,25 +375,25 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                    :: "l"(reinterpret_cast<uint64_t>(&map_a)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n"
                    :: "l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
-      int s = 0;
-      uint32_t phase = 0;
-      for (int kb = kb0; kb < kb1; ++kb) {
-        if (gate_row[kb]) continue;
-        const int kend = min((kb + 1) * bk, K);
-        for (int k0 = kb * bk; k0 < kend; k0 += KS) {
-          mbar_wait(&empty[s], phase ^ 1);
-          uint8_t* stage = smem + s * T::kStageBytes;
-          mbar_expect_tx(&full[s], T::kStageBytes);
-          tma_load(stage, &map_a, k0, m0, &full[s]);
-#pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            tma_load(stage + T::kABytes + j * KS * 128, &map_b, n0 + 64 * j,
-                     k0, &full[s]);
-          if (++s == kStages) { s = 0; phase ^= 1; }
-        }
-      }
     }
-    __syncwarp();
+    int s = 0;
+    uint32_t phase = 0;
+    for (int k0 = ks0; k0 < ks1; k0 += KS) {
+      if (stage_gated(gated, Kb, bm, bk, m0, m1, k0, min(K, k0 + KS)))
+        continue;
+      if (lane == 0) {
+        mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* stage = smem + s * T::kStageBytes;
+        mbar_expect_tx(&full[s], T::kStageBytes);
+        tma_load(stage, &map_a, k0, m0, &full[s]);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(stage + T::kABytes + j * KS * 128, &map_b, n0 + 64 * j,
+                   k0, &full[s]);
+      }
+      __syncwarp();
+      if (++s == kStages) { s = 0; phase ^= 1; }
+    }
   } else {   // consumer warpgroups: rows m0 + 64 wg .. + 63
     const int wg = warp / 4;
     float acc[T::kAcc], tot[T::kAcc];
@@ -378,10 +401,10 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int i = 0; i < T::kAcc; ++i) acc[i] = tot[i] = 0.0f;
     int s = 0;
     uint32_t phase = 0;
-    for (int kb = kb0; kb < kb1; ++kb) {
-      if (gate_row[kb]) continue;
-      const int kend = min((kb + 1) * bk, K);
-      for (int k0 = kb * bk; k0 < kend; k0 += KS) {
+    for (int k0 = ks0; k0 < ks1; k0 += KS) {
+      if (stage_gated(gated, Kb, bm, bk, m0, m1, k0, min(K, k0 + KS)))
+        continue;
+      {
         mbar_wait(&full[s], phase);
         const uint32_t a_addr = smem_addr(smem + s * T::kStageBytes) +
                                 wg * 64 * KS * 2;
@@ -513,18 +536,24 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
   return true;
 }
 
+// The bfloat16 route's arguments, as the entry takes them.
+struct WgmmaArgs {
+  const void* ap;
+  const void* bp;
+  const int32_t* gated;
+  int M, K, Kp, N, Np, bm, bk, Kb, k_per_split;
+  float* out;
+};
+
 template <int NWG, int BN, int KS>
-cudaError_t launch_wgmma(const void* ap, const void* bp, const int32_t* gated,
-                         int M, int Kp, int N, int Np, int bm, int bk,
-                         int Kb, int tiles_per_split, float* out,
-                         cudaStream_t stream) {
+cudaError_t launch_wgmma(const WgmmaArgs& g, cudaStream_t stream) {
   using T = Tile<NWG, BN, KS>;
   const auto kernel = wgmma_kernel<NWG, BN, KS>;
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, ap, M, Kp, T::kBM, KS) ||
-      !make_map(&map_b, bp, Kp, Np, KS, 64))
+  if (!make_map(&map_a, g.ap, g.M, g.Kp, T::kBM, KS) ||
+      !make_map(&map_b, g.bp, g.Kp, g.Np, KS, 64))
     return cudaErrorInvalidValue;
-  const int splits = (Kb + tiles_per_split - 1) / tiles_per_split;
+  const int splits = (g.K + g.k_per_split - 1) / g.k_per_split;
   const int share = (T::kBM + splits - 1) / splits;
   const size_t smem =
       T::kSmem + (splits > 1 ? sizeof(float) * splits * share * BN : 0);
@@ -543,11 +572,11 @@ cudaError_t launch_wgmma(const void* ap, const void* bp, const int32_t* gated,
     if (err != cudaSuccess) return err;
     wide = true;
   }
-  const dim3 grid((N + BN - 1) / BN, (M + T::kBM - 1) / T::kBM, splits);
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + T::kBM - 1) / T::kBM, splits);
   if (splits == 1) {   // a cluster of one: the plain launch is cheaper
-    kernel<<<grid, T::kThreads, smem, stream>>>(map_a, map_b, gated, M, Kp,
-                                                N, bm, bk, Kb,
-                                                tiles_per_split, out);
+    kernel<<<grid, T::kThreads, smem, stream>>>(
+        map_a, map_b, g.gated, g.M, g.K, g.N, g.bm, g.bk, g.Kb,
+        g.k_per_split, g.out);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -562,47 +591,40 @@ cudaError_t launch_wgmma(const void* ap, const void* bp, const int32_t* gated,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, gated, M, Kp, N, bm,
-                            bk, Kb, tiles_per_split, out);
+  return cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, g.gated, g.M, g.K,
+                            g.N, g.bm, g.bk, g.Kb, g.k_per_split, g.out);
 }
 
 template <int NWG, int BN>
-cudaError_t dispatch_ks(int ks, const void* ap, const void* bp,
-                        const int32_t* gated, int M, int Kp, int N, int Np,
-                        int bm, int bk, int Kb, int tps, float* out,
-                        cudaStream_t st) {
-  if (ks == 64)
-    return launch_wgmma<NWG, BN, 64>(ap, bp, gated, M, Kp, N, Np, bm, bk, Kb,
-                                     tps, out, st);
-  if (ks == 32)
-    return launch_wgmma<NWG, BN, 32>(ap, bp, gated, M, Kp, N, Np, bm, bk, Kb,
-                                     tps, out, st);
-  return launch_wgmma<NWG, BN, 16>(ap, bp, gated, M, Kp, N, Np, bm, bk, Kb,
-                                   tps, out, st);
+cudaError_t dispatch_ks(int ks, const WgmmaArgs& g, cudaStream_t st) {
+  if (ks == 64) return launch_wgmma<NWG, BN, 64>(g, st);
+  if (ks == 32) return launch_wgmma<NWG, BN, 32>(g, st);
+  return launch_wgmma<NWG, BN, 16>(g, st);
 }
 
 }  // namespace
 
 // out[M, N] (float32) = a[M, K] @ b[K, N], a and b of one dtype (0:
-// float32, 1: bfloat16), skipping every [bm, bk] tile of a that holds only
-// zeros, and gated[ceil(M / bm), ceil(K / bk)] (int32, 1 = skipped). bm
-// must be a multiple of 64 and bk of 16.
+// float32, 1: bfloat16), skipping every stage of the product whose rows
+// and k lie wholly in [bm, bk] tiles of a that hold only zeros, and
+// gated[ceil(M / bm), ceil(K / bk)] (int32, 1 = a tile of zeros), for any
+// bm, bk >= 1.
 //
 // bfloat16: ap [M, Kp] and bp [Kp, Np] are a and b zero-padded to row
 // strides of a multiple of 16 bytes (the same tensors where they already
-// are), 16-byte aligned; the gate reads a itself. tile_m (64 or 128,
-// dividing bm) and tile_n (64 or 128) are the output tile, tiles_per_split
-// the bk tiles of K each split walks (at most 16 splits, a cluster).
-// Float32: ap, bp, Kp, Np, tile_m, tile_n and tiles_per_split are not
-// read. The launches go to stream on device, made current for them where
-// it is not.
+// are), 16-byte aligned; the gate reads a itself. tile_m (64 or 128) and
+// tile_n (64 or 128) are the output tile, k_stage (64, 32 or 16) the k of
+// a shared-memory stage and k_per_split (a multiple of k_stage) the k each
+// split walks (at most 16 splits, a cluster). Float32: ap, bp, Kp, Np,
+// tile_m, tile_n, k_stage and k_per_split are not read. The launches go to
+// stream on device, made current for them where it is not.
 // Returns cudaGetLastError() after the launches (cudaErrorInvalidValue
 // for arguments the kernels do not take).
 extern "C" int zt_zvg_tiled_matmul(const void* a, const void* ap,
                                    const void* bp, int dtype, int M, int K,
                                    int Kp, int N, int Np, int bm, int bk,
-                                   int tile_m, int tile_n,
-                                   int tiles_per_split, float* out,
+                                   int tile_m, int tile_n, int k_stage,
+                                   int k_per_split, float* out,
                                    int32_t* gated, int device,
                                    void* stream) {
   int current = device;
@@ -610,32 +632,33 @@ extern "C" int zt_zvg_tiled_matmul(const void* a, const void* ap,
     if (cudaSetDevice(device) != cudaSuccess)
       return static_cast<int>(cudaErrorInvalidDevice);
     const int err = zt_zvg_tiled_matmul(a, ap, bp, dtype, M, K, Kp, N, Np,
-                                        bm, bk, tile_m, tile_n,
-                                        tiles_per_split, out, gated, device,
+                                        bm, bk, tile_m, tile_n, k_stage,
+                                        k_per_split, out, gated, device,
                                         stream);
     cudaSetDevice(current);
     return err;
   }
-  if (M < 1 || K < 1 || N < 1 || bm < kTM || bm % kTM || bk < kTK ||
-      bk % kTK || (dtype != kF32 && dtype != kBF16) ||
+  if (M < 1 || K < 1 || N < 1 || bm < 1 || bk < 1 ||
+      (dtype != kF32 && dtype != kBF16) ||
       (M + bm - 1) / bm > kMaxGrid || (M + kTM - 1) / kTM > kMaxGrid)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int Mb = (M + bm - 1) / bm, Kb = (K + bk - 1) / bk;
   const bool bf16 = dtype == kBF16;
   if (bf16) {
-    if (Kp < K || Kp % 8 || Np < N || Np % 8 || tiles_per_split < 1 ||
-        (tile_m != 64 && tile_m != 128) || bm % tile_m ||
-        (tile_n != 64 && tile_n != 128) ||
+    const int splits =
+        k_per_split < 1 ? 0 : (K + k_per_split - 1) / k_per_split;
+    if (Kp < K || Kp % 8 || Np < N || Np % 8 ||
+        (k_stage != 64 && k_stage != 32 && k_stage != 16) ||
+        k_per_split < 1 || k_per_split % k_stage ||
+        (tile_m != 64 && tile_m != 128) || (tile_n != 64 && tile_n != 128) ||
         reinterpret_cast<uintptr_t>(ap) % 16 ||
         reinterpret_cast<uintptr_t>(bp) % 16 ||
-        (M + tile_m - 1) / tile_m > kMaxGrid ||
-        (Kb + tiles_per_split - 1) / tiles_per_split > kMaxGrid ||
-        (Kb + tiles_per_split - 1) / tiles_per_split > kMaxSplits)
+        (M + tile_m - 1) / tile_m > kMaxGrid || splits > kMaxSplits)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const int elem = bf16 ? 2 : 4;
-  const bool vec = (K * elem) % 16 == 0 &&
+  const bool vec = (K * elem) % 16 == 0 && (bk * elem) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0;
   if (bf16)
     gate_kernel<__nv_bfloat16><<<dim3(Kb, Mb), kThreads, 0, st>>>(
@@ -652,18 +675,13 @@ extern "C" int zt_zvg_tiled_matmul(const void* a, const void* ap,
         M, K, N, bm, bk, Kb, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const int ks = bk % 64 == 0 ? 64 : bk % 32 == 0 ? 32 : 16;
+  const WgmmaArgs g{ap, bp, gated, M, K, Kp, N, Np, bm, bk, Kb, k_per_split,
+                    out};
   if (tile_m == 128)
-    err = tile_n == 128
-              ? dispatch_ks<2, 128>(ks, ap, bp, gated, M, Kp, N, Np, bm, bk,
-                                    Kb, tiles_per_split, out, st)
-              : dispatch_ks<2, 64>(ks, ap, bp, gated, M, Kp, N, Np, bm, bk,
-                                   Kb, tiles_per_split, out, st);
+    err = tile_n == 128 ? dispatch_ks<2, 128>(k_stage, g, st)
+                        : dispatch_ks<2, 64>(k_stage, g, st);
   else
-    err = tile_n == 128
-              ? dispatch_ks<1, 128>(ks, ap, bp, gated, M, Kp, N, Np, bm, bk,
-                                    Kb, tiles_per_split, out, st)
-              : dispatch_ks<1, 64>(ks, ap, bp, gated, M, Kp, N, Np, bm, bk,
-                                   Kb, tiles_per_split, out, st);
+    err = tile_n == 128 ? dispatch_ks<1, 128>(k_stage, g, st)
+                        : dispatch_ks<1, 64>(k_stage, g, st);
   return static_cast<int>(err);
 }

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -29,6 +30,43 @@ def _function():
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@dataclass(frozen=True)
+class ChunkPlan:
+    """The chunked walk's grid (``pc::walk_chunked`` in
+    ``csrc/power_counters.cuh``) over T cycles: each 32-lane group is
+    walked by a cluster of ``cluster`` blocks of ``warps`` warps, warp
+    ``w`` of block ``q`` taking chunk ``c = q * warps + w``, cycles
+    ``[c * chunk, min(T, (c + 1) * chunk))``; ``chunks`` of them a lane
+    (the last may be short or empty)."""
+    chunk: int
+    warps: int
+    cluster: int
+    chunks: int
+
+
+#: the chunked walk: warps a block (one chunk each; ``pc::kWalkWarps`` in
+#: the source), the most blocks of a cluster (the portable 8), and the
+#: cycles a chunk aims at
+WALK_WARPS = 8
+WALK_MAX_CLUSTER = 8
+WALK_CHUNK = 16
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_plan(T: int) -> ChunkPlan:
+    """Cut T cycles into chunks of about :data:`WALK_CHUNK` (16 at the
+    serving shape's K = 1024: 64 chunks a lane, a cluster of 8 blocks of 8
+    warps), as many blocks a cluster as that takes up to
+    :data:`WALK_MAX_CLUSTER`, and chunks as long as the cluster's
+    ``cluster * warps`` chunks need to cover T."""
+    if T < 1:
+        raise ValueError(f"the walk needs T >= 1, got {T}")
+    want = -(-T // WALK_CHUNK)
+    cluster = min(WALK_MAX_CLUSTER, -(-want // WALK_WARPS))
+    chunk = -(-T // (cluster * WALK_WARPS))
+    return ChunkPlan(chunk, WALK_WARPS, cluster, cluster * WALK_WARPS)
 
 
 def spec_args(spec: CounterSpec) -> tuple:

@@ -12,6 +12,15 @@ seeds of ``PAGED_CASES`` on an H100 the largest reading was 4.3e-7 in
 float32 and 9.15e-3 in bfloat16; each limit is about twice that or
 more, and a planted fault (each row's last position cut off) reads up
 to 1.1 in both.
+
+The bfloat16 limit alone caught that fault in only 62 of the 80 cases.
+So bfloat16 outputs are also held per element against the float32 plain
+version of the same bfloat16 inputs (:func:`bf16_ulp_error`): within one
+bfloat16 unit in the last place of the float32 value plus
+``ATTN_BF16_ABS`` of the largest magnitude. A kernel that computes in
+float32 and rounds once reads at most about one half there; the planted
+fault reads 11 or more in every one of the 80 cases (the plain versions
+on the CPU, ``tests/test_torch_paged_attention.py``).
 """
 from __future__ import annotations
 
@@ -65,6 +74,23 @@ def paged_case(B: int, kv: int, rep: int, hd: int, ps: int, mp: int,
     return (q.to(dtype).to(device), kp.to(dtype).to(device),
             vp.to(dtype).to(device), pages.to(torch.int32).to(device),
             lengths.to(torch.int32).to(device))
+
+
+#: the absolute term of :func:`bf16_ulp_error`, relative to max |plain|
+ATTN_BF16_ABS = 1e-5
+
+
+def bf16_ulp_error(got: torch.Tensor, want32: torch.Tensor) -> float:
+    """``max |got - want32| / (ulp(want32) + ATTN_BF16_ABS * max
+    |want32|)``, ulp the spacing of bfloat16 numbers at each float32
+    value (at least the smallest normal's): at most 1 for a bfloat16
+    output that is the float32 result rounded once, up to the order of
+    its sums."""
+    want32 = want32.float()
+    mag = want32.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bound = ulp + ATTN_BF16_ABS * want32.abs().max()
+    return float(((got.float() - want32).abs() / bound).max())
 
 
 def relative_error(got: torch.Tensor, want: torch.Tensor) -> float:

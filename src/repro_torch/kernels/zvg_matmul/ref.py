@@ -21,17 +21,25 @@ from repro_torch.core.bits import to_bits
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
 from repro_torch.kernels.power_counters.spec import CounterSpec
 
-#: operand dtypes the decode kernels take
+#: operand dtypes the fused decode kernel (K3) and the tile-gated matmul
+#: take
 DTYPES = (torch.float32, torch.bfloat16)
+#: operand dtypes the gated row matmul (K2) takes, in any pair
+GEMM_DTYPES = DTYPES + (torch.int8,)
 
-_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.int8: torch.int8}
 
 
-def check_operands(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
-    """Raise on operands the decode kernels do not take; returns the
-    product's dtype (float32 unless both are bfloat16)."""
-    if x.dtype not in DTYPES or w.dtype not in DTYPES:
-        raise TypeError(f"operands must be float32 or bfloat16, got "
+def check_operands(x: torch.Tensor, w: torch.Tensor,
+                   dtypes=DTYPES) -> torch.dtype:
+    """Raise on operands the decode kernels do not take (dtypes outside
+    ``dtypes``); returns the product's dtype, ``jnp.result_type``'s:
+    int8 with int8 gives int8, int8 with a float that float, bfloat16
+    with float32 float32."""
+    if x.dtype not in dtypes or w.dtype not in dtypes:
+        extra = ", or int8" if torch.int8 in dtypes else ""
+        raise TypeError(f"operands must be float32 or bfloat16{extra}, got "
                         f"{x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"operands must be [M, K] x [K, N], got "
@@ -41,16 +49,35 @@ def check_operands(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
 
 def row_is_live(x: torch.Tensor) -> torch.Tensor:
     """``[M]`` bool: the row holds a word whose bits are not all zero, so
-    -0.0 and subnormal rows are live and only all-+0.0 rows are gated."""
+    -0.0 and subnormal rows are live and only all-+0.0 rows are gated (for
+    int8 rows the same as the value test)."""
     return (x.view(_INT_VIEW[x.dtype]) != 0).any(dim=-1)
 
 
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of int8 operands in int8, as XLA computes it: the sums
+    exact in int32 (wrapping as the kernel's do) and the result wrapped
+    to int8, i.e. mod 256. Broadcast products summed over pieces of K,
+    since ``torch.matmul`` takes no int8 on the card."""
+    (M, K), N = x.shape, w.shape[1]
+    acc = torch.zeros((M, N), dtype=torch.int32, device=x.device)
+    step = max(1, (1 << 22) // max(1, M * N))
+    for k0 in range(0, K, step):
+        xs = x[:, k0:k0 + step].to(torch.int32)
+        ws = w[k0:k0 + step].to(torch.int32)
+        acc += (xs[:, :, None] * ws[None]).sum(1, dtype=torch.int32)
+    return acc.to(torch.int8)
+
+
 def gated_row_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """ZVG-gated ``x [M, K] @ w [K, N]``: a live row is ``torch.matmul``'s,
-    a gated row is +0.0, which is also that row's ungated product for
-    finite weights."""
-    out_dtype = check_operands(x, w)
-    out = torch.matmul(x.to(out_dtype), w.to(out_dtype))
+    """ZVG-gated ``x [M, K] @ w [K, N]``: a live row is ``torch.matmul``'s
+    (:func:`int8_matmul`'s for two int8 operands), a gated row is zero,
+    which is also that row's ungated product for finite weights."""
+    out_dtype = check_operands(x, w, GEMM_DTYPES)
+    if out_dtype == torch.int8:
+        out = int8_matmul(x, w)
+    else:
+        out = torch.matmul(x.to(out_dtype), w.to(out_dtype))
     return torch.where(row_is_live(x)[:, None], out, out.new_zeros(()))
 
 
@@ -73,7 +100,9 @@ def fused_matmul_counters_ref(a: torch.Tensor, w: torch.Tensor,
     once, the north stream of ``w``'s words padded with zero-word lanes to
     a multiple of ``cols``. Returns ``(product [B, N], west_counts
     int32[B, n_rows_w, lanes_w], west_rowzeros int32[B, K], north_counts
-    int32[n_rows_n, Np], north_rowzeros int32[K])``."""
+    int32[n_rows_n, Np], north_rowzeros int32[K])``. Float operands
+    only."""
+    check_operands(a, w)
     product = gated_row_matmul_ref(a, w)
     B, K = a.shape
     lanes_n = -(-w.shape[1] // cols) * cols

@@ -17,9 +17,14 @@ quickstart path -- the transition counter (K5) and the BIC encoder (K6)
 -- are bitwise equal to theirs over the cases of
 ``repro_torch.kernels.transitions.cases``, and the tile-gated matmul
 (K7) has the same gated map and lies within ``TILED_TOL`` over
-``TILED_CASES`` and ResNet50's split 7 x 7 and padded stem shapes, and a
-split of gated tiles writes +0.0. Each wrapper counts one launch a call. This file imports no JAX: the GPU machine need not have
-it.
+``TILED_CASES``, ResNet50's split 7 x 7 and padded stem shapes and blocks
+that are not multiples of its tiles, and a split of gated tiles writes
++0.0. K2 also takes int8 with each partner (int8 x int8 exactly, ``x @
+w`` mod 256) and K past 32768; K3's chunked counter walk is bitwise on
+adversarial words at K = 1 to 4100 and 1 to 31 segments; K4 also holds
+at the split's edges, and in bfloat16 per element against the float32
+plain version. Each wrapper counts one launch a call. This file imports
+no JAX: the GPU machine need not have it.
 """
 import pytest
 import torch
@@ -41,16 +46,19 @@ from repro_torch.kernels.zvg_matmul import kernel as kz
 from repro_torch.kernels.zvg_matmul import ref as zref
 from repro_torch.kernels.zvg_matmul.cases import (ATTN_TOL, PAGED_CASES,
                                                   TILED_CASES, TILED_TOL,
-                                                  paged_case, relative_error,
-                                                  tiled_case, tiled_error)
+                                                  bf16_ulp_error, paged_case,
+                                                  relative_error, tiled_case,
+                                                  tiled_error)
 from repro_torch.models.attention import decode_attention
 
 pytestmark = pytest.mark.cuda
 
 FULL = CounterSpec(bic_variants=tuple(bic.NAMED_SEGMENTS.values()),
                    zvg=True, hist=True)
-#: |out - f32| <= REL * |f32| + ACC * (|x| @ |w|) + 2**-126, per dtype
-PRODUCT_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-5)}
+#: |out - f32| <= REL * |f32| + ACC * (|x| @ |w|) + 2**-126, per dtype;
+#: int8 x int8 is exact, equal to the plain version (x @ w mod 256)
+PRODUCT_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -8, 1e-5),
+               torch.int8: (0.0, 0.0)}
 
 
 @pytest.fixture
@@ -210,6 +218,125 @@ def test_fused_matmul_counters_kernel_matches_plain(cuda, B, K, N, lanes_w,
         _assert_product(got[0], want[0], a, w)
 
 
+def _adversarial(shape, dtype, seed):
+    """Normal values with zeros, -0.0, NaN, subnormal and all-zero rows
+    and columns mixed in."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g)
+    r = torch.rand(shape, generator=g)
+    x[r < 0.5] = 0.0
+    x[(r >= 0.5) & (r < 0.53)] = -0.0
+    x[(r >= 0.53) & (r < 0.55)] = float("nan")
+    x[(r >= 0.55) & (r < 0.57)] = 1e-39
+    x[..., 1::7] = 0.0                     # all-zero lanes
+    if shape[0] > 2:
+        x[2] = 0.0
+    return x.to(dtype).cuda()
+
+
+def _assert_product_nan(got, plain, x, w):
+    """NaN in the same places; elsewhere K2's product rule."""
+    nan = torch.isnan(plain)
+    assert torch.equal(torch.isnan(got), nan)
+    xf, wf = x.float().nan_to_num(0.0), w.float().nan_to_num(0.0)
+    f32 = xf @ wf
+    rel, acc = PRODUCT_TOL[got.dtype]
+    bound = rel * f32.abs() + acc * (xf.abs() @ wf.abs()) + 2.0 ** -126
+    for out in (got, plain):
+        assert ((out.float() - f32).abs() <= bound)[~nan].all()
+
+
+def _segment_specs(n_segs):
+    """West and north specs with n_segs unique segments: zvg and hist on
+    and off in turn."""
+    singles = tuple((1 << b,) for b in range(15))
+    pairs = tuple(((1 << b) | (1 << ((b + 3) % 16)),) for b in range(16))
+    menu = {1: (bic.MANTISSA_ONLY,),
+            4: ((0x000F,), (0x00F0,), (0x0F00,), (0xF000,)),
+            5: ((0x0003,), (0x000C, 0x0030), (0x00C0,), (0x7F00,),
+                (0x0003, 0x00C0)),
+            31: singles + pairs + (tuple(1 << b for b in range(15)),)}
+    variants = menu[n_segs]
+    west = CounterSpec(bic_variants=variants, zvg=n_segs % 2 == 1,
+                       hist=n_segs >= 5)
+    north = CounterSpec(bic_variants=variants, zvg=n_segs != 5,
+                        hist=n_segs == 4)
+    assert len(west.unique_segments) == n_segs
+    return west, north
+
+
+@pytest.mark.parametrize("n_segs", [1, 4, 5, 31])
+@pytest.mark.parametrize("T", [1, 7, 1023, 1024, 4100])
+def test_fused_matmul_counters_chunked_walk_bitwise(cuda, T, n_segs):
+    """K3's chunked walk against the plain counter pass, bitwise, on
+    adversarial words (NaN, -0.0, subnormal, all-zero lanes and rows), K
+    = T of 1 (one chunk), 7 (below a chunk), 1023 and 1024 (the serving
+    shape's chunks of 16) and 4100 (chunks of 65), 1 to 31 unique
+    segments, zvg and hist on and off, 1 and 9 request rows; the product
+    as K2's. One launch counted a call."""
+    B = 9 if (T + n_segs) % 2 else 1
+    wspec, nspec = _segment_specs(n_segs)
+    a = _adversarial((B, T), torch.bfloat16, seed=T + n_segs)
+    w = _adversarial((T, 40), torch.float32, seed=T * n_segs)
+    before = kz.fused_matmul_counters_cuda.launches
+    got = kz.fused_matmul_counters_cuda(a, w, wspec, nspec, 16, 16)
+    assert kz.fused_matmul_counters_cuda.launches == before + 1
+    want = zref.fused_matmul_counters_ref(a, w, wspec, nspec, 16, 16)
+    torch.cuda.synchronize()
+    for name, g, p in zip(("west_counts", "west_rowzeros", "north_counts",
+                           "north_rowzeros"), got[1:], want[1:]):
+        assert torch.equal(g, p), name
+    _assert_product_nan(got[0], want[0], a, w)
+
+
+#: int8 with each partner: ``(x dtype, w dtype)``
+INT8_PAIRS = [(torch.int8, torch.int8), (torch.int8, torch.bfloat16),
+              (torch.int8, torch.float32)]
+
+
+@pytest.mark.parametrize("xdt,wdt", INT8_PAIRS,
+                         ids=["i8-i8", "i8-bf16", "i8-f32"])
+@pytest.mark.parametrize("M,K,N", [(4, 1024, 1024), (8, 2816, 1024),
+                                   (9, 300, 129)], ids=str)
+def test_gated_row_matmul_int8(cuda, M, K, N, xdt, wdt):
+    """int8 rows (all-zero ones among them) with int8, bfloat16 and
+    float32 weights: int8 x int8 equal to the plain version (x @ w mod
+    256), the float pairs within K2's product rule; gated rows zero."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+    x[[1, M - 1]] = 0
+    if wdt == torch.int8:
+        w = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8)
+    else:
+        w = (torch.randn(K, N, generator=g) * K ** -0.5).to(wdt)
+    x, w = x.cuda(), w.cuda()
+    before = kz.gated_row_matmul_cuda.launches
+    got = kz.gated_row_matmul_cuda(x, w)
+    assert kz.gated_row_matmul_cuda.launches == before + 1
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == plain.dtype == torch.promote_types(xdt, wdt)
+    assert not got[[1, M - 1]].float().view(torch.int32).any()
+    if wdt == torch.int8:   # PRODUCT_TOL[int8]: exact
+        assert PRODUCT_TOL[torch.int8] == (0.0, 0.0)
+        assert torch.equal(got, plain)
+    else:
+        _assert_product(got, plain, x, w)
+
+
+@pytest.mark.parametrize("K", [40000, 65536])
+def test_gated_row_matmul_past_the_staging_limit(cuda, K):
+    """K above 16 x 2048: each of the 16 splits stages x in pieces; gated
+    rows bit-equal, the product within the rule."""
+    x, w = _pair_operands(4, K, 256, torch.bfloat16, torch.bfloat16, (1,),
+                          seed=K)
+    assert kz.decode_plan(K, 256, 2).k_per_split > kz.DECODE_MAX_K
+    got = kz.gated_row_matmul_cuda(x, w)
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    _assert_product(got, plain, x, w)
+
+
 def test_decode_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x, w = _decode_operands(4, 8, 6, torch.float32, seed=0)
     with pytest.raises(ValueError, match="contiguous"):
@@ -270,6 +397,72 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert relative_error(got, want) <= ATTN_TOL[dtype]
+    if dtype == torch.bfloat16:
+        f32 = [t.float() for t in (q, kp, vp)]
+        want32 = zref.fused_paged_attention_ref(*f32, pages, lengths,
+                                                decode_attention,
+                                                softcap=softcap)
+        assert bf16_ulp_error(got, want32) <= 1
+
+
+#: the split's edges: ``(name, (B, kv, rep, hd, ps, mp), lengths)``; a
+#: split is 64 positions, a cluster at most 8 splits (512 positions)
+SPLIT_EDGES = (
+    ("lengths-1", (4, 2, 2, 64, 16, 16), (1, 1, 1, 1)),
+    ("split-boundaries", (5, 2, 1, 64, 16, 16), (64, 128, 192, 65, 63)),
+    ("wider-than-a-cluster", (3, 2, 4, 64, 16, 40), (640, 513, 511)),
+    ("rep8-hd128", (3, 2, 8, 128, 16, 12), (192, 70, 1)),
+    ("length-0", (3, 2, 2, 32, 8, 10), (0, 80, 0)),
+)
+
+
+def _attention64(q, kp, vp, pages, lengths):
+    """The plain paged attention in float64: the gather, then the dense
+    decode attention's einsums and softmax, every step in float64."""
+    k = zref.gather_pages(kp.double(), pages)
+    v = zref.gather_pages(vp.double(), pages)
+    b, _, h, d = q.shape
+    rep = h // k.shape[2]
+    qg = q.double().reshape(b, k.shape[2], rep, d)
+    scores = torch.einsum("bkrd,bskd->bkrs", qg, k) * d ** -0.5
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < lengths[:, None].long())
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkrs,bskd->bkrd", probs, v).reshape(b, 1, h, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,shape,lengths", SPLIT_EDGES,
+                         ids=[e[0] for e in SPLIT_EDGES])
+def test_paged_attention_split_edges(cuda, dtype, name, shape, lengths):
+    """The split's edges within ``ATTN_TOL``: bfloat16 of the plain
+    version (and per element of the float32 plain version), float32 of
+    the plain version computed in float64. (On the 640-position row the
+    float32 plain version is itself 2.1e-6 from float64 on an H100, the
+    kernel 1.4e-7: the float32 limit of 2e-6 was set on rows of 192
+    positions at most.) A row of length 0 is zeros: the plain version's
+    dense attention has no such row to mask."""
+    q, kp, vp, pages, _ = paged_case(*shape, dtype, seed=len(name))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = kz.fused_paged_attention_cuda.launches
+    got = kz.fused_paged_attention_cuda(q, kp, vp, pages, lengths)
+    assert kz.fused_paged_attention_cuda.launches == before + 1
+    if dtype == torch.float32:
+        want = _attention64(q, kp, vp, pages, lengths)
+    else:
+        want = zref.fused_paged_attention_ref(q, kp, vp, pages, lengths,
+                                              decode_attention)
+    torch.cuda.synchronize()
+    live = lengths > 0
+    assert not got[~live].float().view(torch.int32).any()
+    assert relative_error(got[live], want[live]) <= ATTN_TOL[dtype]
+    if dtype == torch.bfloat16:
+        want32 = zref.fused_paged_attention_ref(
+            *[t.float() for t in (q, kp, vp)], pages, lengths,
+            decode_attention)
+        assert bf16_ulp_error(got[live], want32[live]) <= 1
 
 
 def test_paged_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -389,6 +582,27 @@ def test_zvg_tiled_kernel_on_site_shapes(cuda, M, K, N, bm, bk):
     assert tiled_error(out, want) <= TILED_TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M,K,N,bm,bk", [
+    (70, 90, 40, 32, 8), (200, 130, 24, 96, 24), (230, 150, 33, 200, 40),
+    (49, 1152, 256, 32, 8)], ids=str)
+def test_zvg_tiled_kernel_at_any_blocks(cuda, M, K, N, bm, bk, dtype):
+    """Blocks that are not multiples of the card's row tile or k stage,
+    zero tiles planted: the map equal to the plain version's, the product
+    within the tolerance; the last case splits K across a cluster."""
+    a, b = tiled_case(M, K, N, 0.5, None, dtype, seed=M + bk)
+    a[:bm, :bk] = 0
+    a[bm:2 * bm, 2 * bk:3 * bk] = -0.0
+    before = kz.zvg_matmul_cuda.launches
+    out, gated = kz.zvg_matmul_cuda(a, b, bm, 128, bk)
+    assert kz.zvg_matmul_cuda.launches == before + 1
+    want, want_gated = zref.zvg_matmul_ref(a, b, bm, bk)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, want_gated)
+    assert tiled_error(out, want) <= TILED_TOL[dtype]
+
+
 def test_zvg_tiled_split_with_every_tile_gated_writes_plus_zero(cuda):
     """A split product whose every tile is zero (-0.0 among them) skips
     every stage of every split and writes +0.0, bit for bit."""
@@ -450,8 +664,12 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda):
     a, b = tiled_case(64, 64, 64, 0.5, None, torch.float32, seed=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kz.zvg_matmul_cuda(a.cpu(), b.cpu())
-    with pytest.raises(ValueError, match="multiple of"):
-        kz.zvg_matmul_cuda(a, b, block_m=32)
+    # block_m = 32 is taken, as the JAX package takes it
+    out, gated = kz.zvg_matmul_cuda(a, b, block_m=32)
+    want, want_gated = zref.zvg_matmul_ref(a, b, 32, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(gated, want_gated)
+    assert tiled_error(out, want) <= TILED_TOL[torch.float32]
     with pytest.raises(TypeError, match="share a dtype"):
         kz.zvg_matmul_cuda(a, b.to(torch.bfloat16))
 

@@ -142,3 +142,30 @@ def test_paged_attention_checks_its_operands():
         fused_paged_attention(q, kp, vp, pages, lengths, A.decode_attention,
                               backend="cuda")
     assert kernel.fused_paged_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_bf16_ulp_check_catches_the_planted_fault_in_every_case(seed):
+    """The per-element bfloat16 check of K4 (``cases.bf16_ulp_error``,
+    against the float32 plain version of the same bfloat16 inputs) on
+    every ``PAGED_CASES`` case of one of the 8 seeds ``chip_smoke.py``
+    runs: a result computed in float32 and rounded once passes (at most
+    one half here), and the planted fault -- each row's last position
+    cut off, rounded the same way -- fails, in every case, where the
+    relative limit of 2e-2 lets some through."""
+    from repro_torch.kernels.zvg_matmul.cases import (PAGED_CASES,
+                                                      bf16_ulp_error,
+                                                      paged_case)
+
+    for i, (*shape, cap) in enumerate(PAGED_CASES):
+        q, kp, vp, pages, lengths = paged_case(
+            *shape, torch.bfloat16, seed=1000 * seed + i, device="cpu")
+        f32 = [t.float() for t in (q, kp, vp)]
+        want = ref.fused_paged_attention_ref(*f32, pages, lengths,
+                                             A.decode_attention, softcap=cap)
+        assert bf16_ulp_error(want.to(torch.bfloat16), want) <= 0.5
+        assert (lengths > 1).any()
+        cut = ref.fused_paged_attention_ref(
+            *f32, pages, lengths - (lengths > 1).int(), A.decode_attention,
+            softcap=cap).to(torch.bfloat16)
+        assert bf16_ulp_error(cut, want) > 1, (i, shape)

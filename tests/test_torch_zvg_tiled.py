@@ -165,3 +165,47 @@ def test_tma_operands_zero_pad_k_and_n(dtype):
     a, b = tiled_case(64, 256, 64, 0.5, None, dtype, seed=3, device="cpu")
     ap, bp = tma_operands(a, b)
     assert ap is a and bp is b
+
+
+#: blocks that are not multiples of the card's row tile (64) or k stage
+#: (16): ``(M, K, N, block_m, block_k)``
+ODD_BLOCKS = ((70, 90, 40, 32, 8), (200, 130, 24, 96, 24),
+              (230, 150, 33, 200, 40))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M,K,N,bm,bk", ODD_BLOCKS, ids=str)
+def test_plain_matches_the_jax_kernel_at_any_blocks(M, K, N, bm, bk, dtype):
+    """Blocks of (32, 8), (96, 24) and (200, 40), with zero tiles planted
+    among live ones: the gated map equal to ``zvg_matmul_pallas``'s (which
+    pads to any block) and the product within the stated tolerance."""
+    a, b = tiled_case(M, K, N, 0.5, None, dtype, seed=M + bk, device="cpu")
+    a[:bm, :bk] = 0
+    a[bm:2 * bm, 2 * bk:3 * bk] = -0.0
+    out, gated = zvg_matmul(a, b, bm, 128, bk)
+    j_out, j_gated = zvg_matmul_pallas(_jax(a), _jax(b), block_m=bm,
+                                       block_n=128, block_k=bk)
+    np.testing.assert_array_equal(gated.numpy(), np.asarray(j_gated))
+    assert int(gated[0, 0]) == 1 and int(gated[1, 2]) == 1
+    err = tiled_error(out, torch.from_numpy(np.array(j_out)))
+    assert err <= TILED_TOL[dtype], err
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk", ODD_BLOCKS + (
+    (49, 4608, 512, 32, 8), (3136, 576, 64, 1, 1), (784, 1152, 128, 96, 24)),
+    ids=str)
+def test_tiled_plan_takes_any_blocks(M, K, N, bm, bk):
+    """At any blocks the split covers every k once in whole k stages (a
+    stage of 64 where 16 does not divide bk), at most a cluster of them;
+    the output tile stays 64 or 128 rows (128 only where bm allows)."""
+    plan = tiled_plan(M, K, N, bm, bk)
+    assert plan.k_stage in (16, 32, 64)
+    assert bk % plan.k_stage == 0 or (bk % 16 and plan.k_stage == 64)
+    assert plan.k_per_split % plan.k_stage == 0
+    assert plan.splits == -(-K // plan.k_per_split) <= TILED_MAX_SPLITS
+    covered = np.zeros(K, dtype=np.int64)
+    for s in range(plan.splits):
+        covered[s * plan.k_per_split:(s + 1) * plan.k_per_split] += 1
+    assert (covered == 1).all()
+    assert plan.tile_m in (64, 128) and (plan.tile_m == 64 or bm % 128 == 0)
