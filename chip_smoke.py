@@ -47,21 +47,25 @@ kernels' launch counts set to 0 just before it and read just after:
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
-paged attention (K4) and the wgmma tile-gated matmul (K7), and K7's
-library must hold wgmma and TMA-load instructions in its SASS; then the
-plans of K3 (product split, walk chunks) and K4 (position split) at the
-serving shapes. Before the main paths, each kernel is held against its
-plain PyTorch version on the card (counters bitwise, products within a
-stated tolerance; K4 in bfloat16 also per element against the float32
-plain version, which must catch a planted fault in all 80 cases), and
-so are the operands the kernels once refused (K7 at any blocks, K2 on
-int8 and at K past 32768); after
-them, each is timed at its main path's shapes with CUDA events and the
-profiler (K3 per call and per launch, beside K2 alone at K3's product
-shape; K4 per launch and per paged step beside gather + SDPA). The line
-before the last lists the kernels as JSON; the last line is ``{"ok":
-true, "device": {...}}``. Without a card, or without the rest of the
-repository beside it, it exits non-zero and prints no result.
+paged attention (K4), the wgmma tile-gated matmul (K7), K1's grouped
+counter walk and K6's chunked invert scan, and K7's library must hold
+wgmma and TMA-load instructions in its SASS; then the plans of K3
+(product split, walk chunks) and K4 (position split) at the serving
+shapes, K1's at the CNN and prefill launches it times one by one and
+K6's at three weight streams. Before the main paths, each kernel is held
+against its plain PyTorch version on the card (counters bitwise, K1 and
+K6 also at every edge of their plans; products within a stated
+tolerance; K4 in bfloat16 also per element against the float32 plain
+version, which must catch a planted fault in all 80 cases), and so are
+the operands the kernels once refused (K7 at any blocks, K2 on int8 and
+at K past 32768); after them, each is timed at its main path's shapes
+with CUDA events and the profiler (K1 over ResNet50's 108 and
+MobileNetV1's 56 launches by both, and at each launch of
+``K1_PLAN_SHAPES``; K3 per call and per launch, beside K2 alone at K3's
+product shape; K4 per launch and per paged step beside gather + SDPA).
+The line before the last lists the kernels as JSON; the last line is
+``{"ok": true, "device": {...}}``. Without a card, or without the rest
+of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -140,11 +144,28 @@ PAGED_STOCHASTIC = (3, 7, 11, 14)   # temperature 0.8, top-k 5
 PAGED_SYSTEM = 64                   # shared system-prompt tokens
 
 
+#: the K1 launches whose plans are logged and times kept one by one,
+#: (B, T, L): ResNet50's stem and s4b1.c2 edges, MobileNetV1's first and
+#: last depthwise batches, the serving accountant's prefill edges
+#: (Qwen1.5-0.5B, K sampled to 1024: 128 prompt rows west, 256 columns
+#: north)
+K1_PLAN_SHAPES = {"resnet50 stem west": (1, 147, 12544),
+                  "resnet50 stem north": (1, 147, 64),
+                  "resnet50 s4b1.c2 west": (1, 4608, 64),
+                  "resnet50 s4b1.c2 north": (1, 4608, 512),
+                  "mobilenet dw1 west": (32, 9, 12544),
+                  "mobilenet dw13 west": (1024, 9, 64),
+                  "prefill west": (1, 1024, 128),
+                  "prefill north": (1, 1024, 256)}
+
+
 #: the redesigned kernels, by library: their ptxas lines (registers,
 #: shared memory, spills) are printed after the build
 REDESIGNED = {"zvg_matmul": ("stream_kernel", "walk_kernel"),
               "paged_attention": ("split_attention_kernel",),
-              "zvg_tiled_matmul": ("wgmma_kernel", "gate_kernel")}
+              "zvg_tiled_matmul": ("wgmma_kernel", "gate_kernel"),
+              "power_counters": ("counters_kernel",),
+              "bic_encode": ("bic_encode_kernel",)}
 
 
 def ptxas_summary(name: str, kernels) -> list[str]:
@@ -183,17 +204,26 @@ def sass_check(lib: Path) -> None:
 
 
 def log_plans() -> None:
-    """The plans of the redesigned serving kernels at their main path's
-    shapes: K3's product split and counter chunks (Qwen1.5-0.5B's
-    accountant: 4 x 1024 x 256, float32 weights), K4's split (8 rows, 16
-    KV heads, 16 pages of 16)."""
-    from repro_torch.kernels.power_counters.kernel import chunk_plan
+    """The plans of the redesigned kernels at their main path's shapes:
+    K3's product split and counter chunks (Qwen1.5-0.5B's accountant: 4 x
+    1024 x 256, float32 weights), K4's split (8 rows, 16 KV heads, 16
+    pages of 16), K1's at :data:`K1_PLAN_SHAPES` and K6's at ResNet50's
+    largest and smallest weight streams and the quickstart's."""
+    from repro_torch.kernels.bic_encode.kernel import bic_plan
+    from repro_torch.kernels.power_counters.kernel import (chunk_plan,
+                                                           counter_plan)
     from repro_torch.kernels.zvg_matmul import kernel as kz
 
     log(f"plan K3 product: {kz.decode_plan(1024, 256, 4)}")
     log(f"plan K3 walk: {chunk_plan(1024)} (32-lane groups: 4 west + 8 "
         f"north, {12 * chunk_plan(1024).cluster} blocks)")
     log(f"plan K4: {kz.paged_plan(SERVE_CACHE // PAGE, PAGE, PAGED_ROWS, 16)}")
+    for label, shape in K1_PLAN_SHAPES.items():
+        plan = counter_plan(*shape)
+        log(f"plan K1 {label} {shape}: {plan} ({plan.route})")
+    for T, L in ((4608, 512), (147, 64), (512, 128)):
+        plan = bic_plan(T, L)
+        log(f"plan K6 {(T, L)}: {plan} ({plan.route})")
 
 
 def log(msg: str) -> None:
@@ -249,6 +279,7 @@ def assert_kernel_matches(x: torch.Tensor, spec, ctx: str,
 def phase_kernel_cases() -> int:
     from repro_torch.core import bic
     from repro_torch.kernels.power_counters import CounterSpec
+    from repro_torch.kernels.power_counters.cases import PLAN_EDGES
 
     gen = torch.Generator().manual_seed(0)
     full = CounterSpec(bic_variants=tuple(bic.NAMED_SEGMENTS.values()),
@@ -272,10 +303,23 @@ def phase_kernel_cases() -> int:
         err = max(err, assert_kernel_matches(adversarial_words(T, L, gen),
                                              seg31, f"31 segments {T}x{L}"))
         n += 1
-    for B, T, L in ((5, 257, 33), (64, 9, 3136), (3, 4609, 20)):
+    for B, T, L in ((5, 257, 33), (64, 9, 3136), (3, 4609, 20),
+                    (7, 1025, 45), (1024, 9, 64), (2, 129, 12544)):
         x = adversarial_words(T, L, gen, batch=B)
         err = max(err, assert_kernel_matches(x, full, f"batch {B}x{T}x{L}"))
         n += 1
+    # the plan's edges: one pass, a block's chunks, clusters of 4-16
+    for T in PLAN_EDGES:
+        for L in (1, 33):
+            x = adversarial_words(T, L, gen)
+            err = max(err, assert_kernel_matches(
+                x, full, f"edge {T}x{L}",
+                words=x.to(torch.int16).view(torch.uint16)))
+            err = max(err, assert_kernel_matches(x, full, f"edge {T}x{L}"))
+            n += 2
+    err = max(err, assert_kernel_matches(adversarial_words(4609, 40, gen),
+                                         seg31, "31 segments 4609x40"))
+    n += 1
     log(f"kernel vs plain on the card: {n} cases bitwise equal "
         f"(max_abs_err {err})")
     return err
@@ -993,6 +1037,7 @@ def phase_stream_kernel_cases() -> tuple[int, int]:
     from repro_torch.core import bic
     from repro_torch.kernels.bic_encode import kernel as k6
     from repro_torch.kernels.bic_encode.ref import bic_encode_ref
+    from repro_torch.kernels.power_counters.cases import PLAN_EDGES
     from repro_torch.kernels.transitions import kernel as k5
     from repro_torch.kernels.transitions.cases import (BIC_MASKS, BIC_SHAPES,
                                                        TRANSITION_MASKS,
@@ -1031,6 +1076,23 @@ def phase_stream_kernel_cases() -> tuple[int, int]:
                                                   (mask,)), x):
                     raise AssertionError(f"{ctx}: does not decode back")
                 n6 += 1
+    for T in PLAN_EDGES:   # the plan's edges, as K1's
+        for L in (1, 33):
+            x = stream_words(T, L, seed=T * 5 + L)
+            for mask in BIC_MASKS:
+                for words in (x, x.to(torch.uint16)):
+                    tx, inv = k6.bic_encode_cuda(words, mask)
+                    want_tx, want_inv = bic_encode_ref(words, mask)
+                    err6 = max(err6, word_err((tx, want_tx),
+                                              (inv, want_inv)))
+                    if not (torch.equal(tx, want_tx)
+                            and torch.equal(inv, want_inv)
+                            and torch.equal(bic.bic_decode(
+                                tx, inv[:, None, :], (mask,)), x)):
+                        raise AssertionError(
+                            f"K6 edge {T}x{L} mask {mask:#x} "
+                            f"{words.dtype}: kernel != plain version")
+                    n6 += 1
     torch.cuda.synchronize()
     log(f"transitions vs plain on the card: {n5} cases bitwise equal; "
         f"bic_encode vs plain: {n6} cases bitwise equal, each decoding "
@@ -1549,29 +1611,82 @@ def launch_cost(x: torch.Tensor, spec) -> tuple[float, float]:
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU_OPS_PER_S * 1e3
 
 
-def phase_timing(sites) -> dict:
-    from repro_torch.kernels.power_counters.kernel import fused_counters_cuda
+def k1_shapes(sites, msites) -> list:
+    """The launches of :data:`K1_PLAN_SHAPES` as ``(label, words,
+    spec)``: the CNN main paths' own streams (``sites`` and ``msites`` as
+    :func:`check_sites` returns them), and for the serving accountant's
+    prefill edges random words of that shape, a third of them zero, under
+    the CNN menu's specs."""
+    streams = {}
+    for net, ss in (("resnet50", sites), ("mobilenet", msites)):
+        for name, a, ws, b, ns in ss:
+            streams[f"{net} {name} west"] = (a, ws)
+            streams[f"{net} {name} north"] = (b, ns)
+    _, a, wspec, _, nspec = sites[0]
+    gen = torch.Generator(device=a.device).manual_seed(0)
+    out = []
+    for label, (B, T, L) in K1_PLAN_SHAPES.items():
+        if label.startswith("prefill"):
+            x = torch.randint(0, 1 << 16, (T, L), generator=gen,
+                              device=a.device, dtype=torch.int32)
+            x[torch.rand(x.shape, generator=gen, device=a.device)
+              < 1 / 3] = 0
+            x, spec = x.to(a.dtype), (wspec if "west" in label else nspec)
+        else:
+            x, spec = streams[label]
+        shape = tuple(x.shape) if x.dim() == 3 else (1, *x.shape)
+        if shape != (B, T, L):
+            raise AssertionError(f"K1 launch {label}: {shape} is not "
+                                 f"{(B, T, L)}")
+        out.append((label, x, spec))
+    return out
+
+
+def phase_timing(sites, msites) -> dict:
+    """K1 over the CNN main paths' launches, ResNet50's 108 and
+    MobileNetV1's 56: device time per launch from the profiler
+    (:func:`device_ms`) and by CUDA events cycling through the launches
+    (which the host's ~25-40 us a call sets), summed, beside the plain
+    version (events) and the bound; and each launch of
+    :func:`k1_shapes` alone (profiler) with its plan."""
+    from repro_torch.kernels.power_counters.kernel import (counter_plan,
+                                                           fused_counters_cuda)
     from repro_torch.kernels.power_counters.ref import fused_counters_ref
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-    shapes = []
-    for name, a_bits, wspec, b_bits, nspec in sites:
-        for edge, x, spec in (("west", a_bits, wspec),
-                              ("north", b_bits, nspec)):
-            ms = time_ms(lambda: fused_counters_cuda(x, spec), 10)
-            plain = time_ms(lambda: fused_counters_ref(x, spec), 3)
+    out = {}
+    for net, ss in (("resnet50", sites), ("mobilenet", msites)):
+        launches = [(x, spec) for _, a, ws, b, ns in ss
+                    for x, spec in ((a, ws), (b, ns))]
+        fns = [lambda x=x, s=s: fused_counters_cuda(x, s)
+               for x, s in launches]
+        n = len(fns)
+        t = {"launches": n, "ms": n * device_ms(fns),
+             "events_ms": n * time_cycle(fns, 5),
+             "plain_ms": n * time_cycle([
+                 lambda x=x, s=s: fused_counters_ref(x, s)
+                 for x, s in launches], 2),
+             "bytes_ms": 0.0, "ops_ms": 0.0}
+        for x, spec in launches:
             b_ms, o_ms = launch_cost(x, spec)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain
-            tot["bytes_ms"] += b_ms
-            tot["ops_ms"] += o_ms
-            if name in ("stem", "s4b1.c2"):
-                shapes.append({
-                    "site": name, "edge": edge, "T": x.shape[-2],
-                    "L": x.shape[-1], "n_rows": spec.n_rows, "ms": ms,
-                    "plain_ms": plain, "bound_ms": max(b_ms, o_ms)})
-    tot["shapes"] = shapes
-    return tot
+            t["bytes_ms"] += b_ms
+            t["ops_ms"] += o_ms
+        out[net] = t
+    shapes = []
+    for label, x, spec in k1_shapes(sites, msites):
+        b_ms, o_ms = launch_cost(x, spec)
+        plan = counter_plan(*((1,) * (3 - x.dim()) + tuple(x.shape)))
+        shapes.append({
+            "launch": label, "shape": list(x.shape), "n_rows": spec.n_rows,
+            "route": plan.route, "plan": plan.__dict__,
+            "ms": device_ms([lambda: fused_counters_cuda(x, spec)] * 5),
+            "plain_ms": time_ms(lambda: fused_counters_ref(x, spec), 3),
+            "bound_ms": max(b_ms, o_ms)})
+        log(f"power_counters {label} {tuple(x.shape)} ({plan.route}, "
+            f"{plan.chunks} chunks of {plan.chunk}): device "
+            f"{shapes[-1]['ms']:.5f} ms, plain {shapes[-1]['plain_ms']:.4f}"
+            f" ms, bound {shapes[-1]['bound_ms']:.6f} ms")
+    out["shapes"] = shapes
+    return out
 
 
 def phase_serving_timing(cfg, eng) -> dict:
@@ -1939,7 +2054,7 @@ def main() -> int:
     sites, e = check_sites("resnet50", layers, designs)
     err = max(err, e)
     mlayers, mlaunches, _ = run_main_path("mobilenet", designs, 28)
-    _, e = check_sites("mobilenet", mlayers, designs)
+    msites, e = check_sites("mobilenet", mlayers, designs)
     err = max(err, e)
     cfg, params, eng, slot_done, serve_launches = phase_serving()
     paged = phase_paged_serving(cfg, params, eng, slot_done)
@@ -1949,12 +2064,15 @@ def main() -> int:
     err6 = max(err6, e6, site_pass["err6"])
     site_launches = site_pass["launches"]
 
-    phase_breakdown("resnet50", designs)
-    tot = phase_timing(sites)
-    bound_ms = max(tot["bytes_ms"], tot["ops_ms"])
-    log(f"power_counters over the ResNet50 main path's {launches} launch "
-        f"shapes: kernel {tot['ms']:.3f} ms, plain version "
-        f"{tot['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms")
+    breakdown = phase_breakdown("resnet50", designs)
+    k1 = phase_timing(sites, msites)
+    tot = k1["resnet50"]
+    for net in ("resnet50", "mobilenet"):
+        t = k1[net]
+        log(f"power_counters over the {net} main path's {t['launches']} "
+            f"launches: device {t['ms']:.4f} ms (profiler), events "
+            f"{t['events_ms']:.4f} ms, plain version {t['plain_ms']:.3f} ms,"
+            f" bound {max(t['bytes_ms'], t['ops_ms']):.5f} ms")
     st = phase_serving_timing(cfg, eng)
     k2, k3 = st["k2"], st["k3"]
     profiled = phase_decode_profile(cfg, eng)
@@ -1985,8 +2103,16 @@ def main() -> int:
         "plain_ms": tot["plain_ms"],
         **bound(tot),
         "library_ms": None,
-        "ms_over": "sum over the ResNet50 main path's launch shapes",
-        "shapes": tot["shapes"],
+        "events_ms": tot["events_ms"],
+        "ms_over": "one launch on each of the ResNet50 main path's 108 "
+                   "edge streams, device time (profiler), summed; "
+                   "events_ms by CUDA events cycling through them, "
+                   "plain_ms likewise",
+        "mobilenet": {k: k1["mobilenet"][k] for k in (
+            "launches", "ms", "events_ms", "plain_ms")} | bound(
+                k1["mobilenet"]),
+        "counting_s": breakdown["counters_s"],
+        "shapes": k1["shapes"],
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",

@@ -10,28 +10,29 @@
 // toggles, zero words, zero-held register toggles and is-zero line
 // toggles, BIC data and invert toggles per variant over the raw and the
 // held stream, optional ones histograms), plus the per-cycle zero counts
-// rowzeros[T]. A batch [B, T, L] runs in one launch (blockIdx.y = b).
+// rowzeros[T]. A batch [B, T, L] runs in one launch.
 //
-// Design: one thread per lane walks T in order (pc::walk_lane in
-// power_counters.cuh, shared with the fused decode kernel of
-// zvg_matmul.cu), so a warp's loads of one cycle are adjacent in memory.
-// All state lives in registers: the previous word, the held register, the
-// previous is-zero bit, one packed invert word per encoded stream (bit si =
-// unique segment si, at most 31) and the per-row accumulators. Each step
-// takes the segment distances with __popc. The kernel masks its ragged
-// lane edge itself: no padding, no host-side correction.
+// Design: the grouped walk of power_counters.cuh (pc::walk_grouped) over
+// every 32-lane group of every stream of the batch, as the plan
+// (kernels/power_counters/kernel.py::counter_plan) lays it out: a group's
+// T cycles are cut into split * cl chunks walked by `split` warps of a
+// block in each of a cluster's `cl` blocks, their summaries (the composed
+// packed (f(0), f(1)) invert step functions, the reference's
+// _compose_packed, and the first and last live word for the held
+// register) folded in cycle order and each chunk re-walked from its start
+// state; a group of one chunk (short streams, or enough groups to fill
+// the card) is walked in one pass. The group index runs over the batch
+// and the lanes together (blockIdx.x / cl), so a block may hold groups of
+// several streams. Loads are branch-free (a lane past L reads lane L - 1
+// and keeps 0), so kAhead cycles' loads are in flight at once. The kernel
+// masks its ragged lane edge itself: no padding, no host-side correction.
 //
 // Bound on an H100: the pass reads each word once (2*T*L bytes as uint16,
 // which the CNN main path hands it; int32 words are also taken) and writes
-// 4*(n_rows*L + T) bytes. At the main path's sizes that is a few MB,
-// microseconds at 3.35 TB/s, so what bounds this simple design is the
-// latency of the T-long sequential walk per lane (a K = 4608 layer with
-// 512 lanes runs only 16 warps). Loads are
-// issued pc::kChunk cycles ahead to hide some of it. The later change that
-// makes it fast splits T into chunks walked in parallel and combines them
-// through the packed (f(0), f(1)) invert composition (the reference's
-// _compose_packed) and a MAX over (cycle << 16 | word) for the held
-// register.
+// 4*(n_rows*L + T) bytes: microseconds at 3.35 TB/s for the main path's
+// streams. What a launch costs instead is its longest chain: two passes
+// over a chunk (~0.2 us a cycle, one batch of loads a memory latency) and
+// the fold's barriers, or one pass over T for a group of one chunk.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,43 +41,64 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = pc::kWalkWarps * 32;
 
-template <typename Word, int NSEG>
+template <typename Word, int NSEG, bool ONE_PASS>
 __global__ void __launch_bounds__(kThreads)
-counters_kernel(const Word* __restrict__ x, int T, int L, int n_rows,
+counters_kernel(const Word* __restrict__ x, int B, int T, int L, int groups,
+                int n_rows, int chunk, int split, int cl,
                 int32_t* __restrict__ counts, int32_t* __restrict__ rowzeros,
                 const pc::Params p) {
-  const int b = blockIdx.y;
-  const int l = blockIdx.x * kThreads + threadIdx.x;
-  const Word* xb = x + static_cast<size_t>(b) * T * L;
+  __shared__ pc::ScanShared<6> sm;
+  // B * groups < 2^31, checked by the entry
+  const int item = static_cast<int>(blockIdx.x / cl) *
+                       (pc::kWalkWarps / split) +
+                   static_cast<int>(threadIdx.x / 32) / split;
+  const bool live = item < B * groups;
+  const int b = live ? item / groups : 0;
+  const int lane = (item - b * groups) * 32 + threadIdx.x % 32;
+  const bool valid = live && lane < L;
+  const int col = min(lane, L - 1);
+  const Word* xb = x + static_cast<size_t>(b) * T * L + col;
   const auto load = [&](int t) {
-    return static_cast<uint32_t>(xb[static_cast<size_t>(t) * L + l]);
+    const uint32_t w = static_cast<uint32_t>(xb[static_cast<size_t>(t) * L]);
+    return valid ? w : 0u;
   };
-  pc::walk_lane<NSEG>(load, T, l < L, rowzeros + static_cast<size_t>(b) * T,
-                      counts + static_cast<size_t>(b) * n_rows * L + l, L, p);
+  pc::walk_grouped<NSEG, ONE_PASS>(
+      load, T, chunk, split, cl, live, valid, b,
+      rowzeros + static_cast<size_t>(b) * T,
+      counts + static_cast<size_t>(b) * n_rows * L + col, L, p, sm);
 }
 
 template <typename Word, int NSEG>
-cudaError_t launch(const void* x, int B, int T, int L, int n_rows,
-                   int32_t* counts, int32_t* rowzeros, const pc::Params& p,
-                   cudaStream_t stream) {
-  const dim3 grid((L + kThreads - 1) / kThreads, B);
-  counters_kernel<Word, NSEG><<<grid, kThreads, 0, stream>>>(
-      static_cast<const Word*>(x), T, L, n_rows, counts, rowzeros, p);
-  return cudaGetLastError();
+cudaError_t launch(const void* x, int B, int T, int L, int n_rows, int chunk,
+                   int split, int cl, int32_t* counts, int32_t* rowzeros,
+                   const pc::Params& p, cudaStream_t stream) {
+  const int groups = (L + 31) / 32;
+  const int per_block = pc::kWalkWarps / split;
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<int64_t>(B) * groups + per_block - 1) / per_block * cl);
+  const auto kernel = split * cl == 1 ? counters_kernel<Word, NSEG, true>
+                                      : counters_kernel<Word, NSEG, false>;
+  return pc::launch_walk(kernel, blocks, cl, stream,
+                         static_cast<const Word*>(x), B, T, L, groups, n_rows,
+                         chunk, split, cl, counts, rowzeros, p);
 }
 
 }  // namespace
 
 // Counts one batch of edge streams x[B, T, L] (word_bytes 2: uint16 words,
 // 4: int32 words holding 0..65535) into counts[B, n_rows, L] and
-// rowzeros[B, T]; rowzeros must be zeroed by the caller. seg_masks[n_segs]
-// are the spec's unique segments, variant_segs[n_variants] one bitmask of
-// segment indices per BIC variant. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for arguments the kernel does not take).
+// rowzeros[B, T] on the plan (chunk, split, cl) of counter_plan: split in
+// 1, 2, 4, 8, cl in 1..16 (with split 8 past 1), split * cl * chunk >= T.
+// rowzeros must be zeroed by the caller, and counts too where split * cl
+// > 1 (they are summed into). seg_masks[n_segs] are the spec's unique
+// segments, variant_segs[n_variants] one bitmask of segment indices per
+// BIC variant. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int pc_fused_counters(const void* x, int word_bytes, int B, int T,
-                                 int L, int32_t* counts, int32_t* rowzeros,
+                                 int L, int chunk, int split, int cl,
+                                 int32_t* counts, int32_t* rowzeros,
                                  int n_rows, int n_segs,
                                  const uint32_t* seg_masks, int n_variants,
                                  const uint32_t* variant_segs, int zvg,
@@ -84,6 +106,10 @@ extern "C" int pc_fused_counters(const void* x, int word_bytes, int B, int T,
   pc::Params p;
   if (B < 1 || B > 65535 || T < 1 || L < 1 ||
       (word_bytes != 2 && word_bytes != 4) ||
+      (split != 1 && split != 2 && split != 4 && split != 8) || cl < 1 ||
+      cl > pc::kMaxCluster || (cl > 1 && split != pc::kWalkWarps) ||
+      chunk < 1 || static_cast<int64_t>(split) * cl * chunk < T ||
+      static_cast<int64_t>(B) * ((L + 31) / 32) * cl > 0x7FFFFFFF ||
       !pc::make_params(p, n_rows, n_segs, seg_masks, n_variants,
                        variant_segs, zvg, hist))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -91,14 +117,18 @@ extern "C" int pc_fused_counters(const void* x, int word_bytes, int B, int T,
   cudaError_t err;
   if (word_bytes == 2) {
     err = n_segs <= 4
-              ? launch<uint16_t, 4>(x, B, T, L, n_rows, counts, rowzeros, p, s)
-              : launch<uint16_t, pc::kMaxSegs>(x, B, T, L, n_rows, counts,
-                                               rowzeros, p, s);
+              ? launch<uint16_t, 4>(x, B, T, L, n_rows, chunk, split, cl,
+                                    counts, rowzeros, p, s)
+              : launch<uint16_t, pc::kMaxSegs>(x, B, T, L, n_rows, chunk,
+                                               split, cl, counts, rowzeros,
+                                               p, s);
   } else {
     err = n_segs <= 4
-              ? launch<int32_t, 4>(x, B, T, L, n_rows, counts, rowzeros, p, s)
-              : launch<int32_t, pc::kMaxSegs>(x, B, T, L, n_rows, counts,
-                                              rowzeros, p, s);
+              ? launch<int32_t, 4>(x, B, T, L, n_rows, chunk, split, cl,
+                                   counts, rowzeros, p, s)
+              : launch<int32_t, pc::kMaxSegs>(x, B, T, L, n_rows, chunk,
+                                              split, cl, counts, rowzeros, p,
+                                              s);
   }
   return static_cast<int>(err);
 }

@@ -1,27 +1,21 @@
 // Device code shared by every kernel that walks a systolic-array edge
 // stream: the walk of the fused power-counter pass (the held register,
-// the BIC invert recurrences, the ones histograms) and the host-side
-// checks of its arguments. power_counters.cu (K1, the counter pass alone)
-// and zvg_matmul.cu (K3, the decode matmul fused with its counters) both
-// include it, so the counter arithmetic is one piece of code; both
-// replace walks of the TPU kernel
+// the BIC invert recurrences, the ones histograms), the scan that gives
+// each chunk of a walk its start state, and the host-side checks of the
+// walk's arguments. power_counters.cu (K1, the counter pass alone),
+// zvg_matmul.cu (K3, the decode matmul fused with its counters) and
+// bic_encode.cu (K6, whose invert line is one segment's recurrence) include
+// it, so the step arithmetic is one piece of code; K1 and K3 replace walks
+// of the TPU kernel
 //   src/repro/kernels/power_counters/kernel.py::fused_counters_pallas
 // (K3 through src/repro/kernels/zvg_matmul/fused.py::fused_matmul_counters).
 //
 // What bounds a walk on an H100 is its bytes (each 16-bit word read once,
 // the counters written once: microseconds at 3.35 TB/s), but a walk of T
-// cycles in one thread is a dependent chain of T steps. Two walks live
-// here:
-//   * walk_lane (K1): one thread per lane over T cycles from an all-zero
-//     bus, writing per lane every row of CounterSpec.rows in order; the
-//     per-cycle zero words of the lanes are summed into rowzeros[t] by a
-//     warp ballot and one atomicAdd per warp and cycle (integer, so exact
-//     in any order). All threads of a warp walk the same T, so that the
-//     ballots line up; a thread whose lane is not `valid` walks with its
-//     warp, votes "non-zero" and writes nothing. At ~430 ns a cycle its
-//     chain was all of K3's 0.44 ms and is most of K1's time.
-//   * walk_chunked (K3, and K1's redesign next): the chain cut into
-//     chunks walked in parallel, see its section below.
+// cycles in one thread is a dependent chain of T steps. So every walk here
+// cuts a lane's T cycles into chunks walked in parallel and composes what
+// each chunk does to the carried state (the TPU kernel's "parallel"
+// algorithm): walk_chunked (K3) and walk_grouped (K1), see their sections.
 #pragma once
 
 #include <cstdint>
@@ -35,7 +29,6 @@ namespace pc {
 constexpr int kMaxSegs = 31;
 constexpr int kMaxVariants = 64;
 constexpr int kWordBits = 16;
-constexpr int kChunk = 8;
 constexpr uint32_t kMant = 0x007Fu;
 constexpr uint32_t kNotSign = 0x7FFFu;
 
@@ -130,13 +123,13 @@ __device__ __forceinline__ void bic_step(BicState<NSEG>& s, uint32_t xo,
   }
 }
 
-// A lane's walk state and counts, for the chunked walk: the previous word,
-// the held register, the previous is-zero bit, the invert lines of both
-// encoded streams and every row's running sum. step() takes one cycle, as
-// walk_lane's loop body does; emit() hands each row of CounterSpec.rows,
-// in order, to sink(row, value). (walk_lane keeps its own copy of the
-// step: K1 built on this struct measured 1.35% slower on an H100, and K1's
-// own redesign onto the chunked walk comes next.)
+// A lane's walk state and counts: the previous word, the held register,
+// the previous is-zero bit, the invert lines of both encoded streams and
+// every row's running sum. step() takes one cycle (per lane the counts
+// accumulate in registers; the per-cycle zero words are summed into
+// rowzeros by the walks below, a warp ballot and one atomicAdd per warp
+// and cycle, integer and so exact in any order); emit() hands each row of
+// CounterSpec.rows, in order, to sink(row, value).
 template <int NSEG>
 struct Walk {
   uint32_t prev = 0u, held = 0u;
@@ -214,104 +207,6 @@ struct Walk {
   }
 };
 
-template <int NSEG>
-__device__ __forceinline__ int write_variants(int32_t* out, int row,
-                                              size_t stride, int base,
-                                              const BicState<NSEG>& s,
-                                              const Params& p) {
-  for (int v = 0; v < p.n_variants; ++v) {
-    const uint32_t segs = p.variant_segs[v];
-    int data = base, inv = 0;
-#pragma unroll
-    for (int si = 0; si < NSEG; ++si) {
-      if (si < p.n_segs && ((segs >> si) & 1u)) {
-        data += s.dsum[si];
-        inv += s.fsum[si];
-      }
-    }
-    out[static_cast<size_t>(row++) * stride] = data;
-    out[static_cast<size_t>(row++) * stride] = inv;
-  }
-  return row;
-}
-
-// The per-lane walk. `load(t)` returns the lane's word at cycle t (called
-// only for a valid lane); `out` points at the lane's first counter row,
-// the rows `stride` words apart; `rz` at the stream's rowzeros[T]. Loads
-// are issued kChunk cycles ahead of their use.
-template <int NSEG, typename Load>
-__device__ __forceinline__ void walk_lane(const Load& load, int T, bool valid,
-                                          int32_t* __restrict__ rz,
-                                          int32_t* __restrict__ out,
-                                          size_t stride, const Params& p) {
-  const int lane = threadIdx.x & 31;
-  uint32_t prev = 0u, held = 0u;
-  bool prev_z = false;
-  int raw = 0, mant = 0, zeros = 0, hraw = 0, hmant = 0, iszero = 0;
-  int ones[kWordBits];
-#pragma unroll
-  for (int i = 0; i < kWordBits; ++i) ones[i] = 0;
-  BicState<NSEG> br{}, bh{};
-
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    uint32_t buf[kChunk];
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const int t = t0 + i;
-      buf[i] = (valid && t < T) ? (load(t) & 0xFFFFu) : 0u;
-    }
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const int t = t0 + i;
-      if (t >= T) break;  // the same t for every thread: no divergence
-      const uint32_t w = buf[i];
-      const bool z = valid && (w & kNotSign) == 0u;
-      const unsigned zb = __ballot_sync(0xFFFFFFFFu, z);
-      if (lane == 0 && zb) atomicAdd(&rz[t], __popc(zb));
-
-      const uint32_t xo = w ^ prev;
-      prev = w;
-      raw += __popc(xo);
-      mant += __popc(xo & kMant);
-      zeros += z;
-      if (p.n_segs) bic_step<NSEG>(br, xo, p);
-      if (p.zvg) {
-        const uint32_t h = z ? held : w;
-        const uint32_t ho = h ^ held;
-        held = h;
-        hraw += __popc(ho);
-        hmant += __popc(ho & kMant);
-        iszero += (z != prev_z);
-        prev_z = z;
-        if (p.n_segs) bic_step<NSEG>(bh, ho, p);
-      }
-      if (p.hist) {
-#pragma unroll
-        for (int bit = 0; bit < kWordBits; ++bit) ones[bit] += (w >> bit) & 1u;
-      }
-    }
-  }
-  if (!valid) return;
-
-  int row = 0;
-  out[static_cast<size_t>(row++) * stride] = raw;
-  out[static_cast<size_t>(row++) * stride] = mant;
-  out[static_cast<size_t>(row++) * stride] = zeros;
-  if (p.zvg) {
-    out[static_cast<size_t>(row++) * stride] = hraw;
-    out[static_cast<size_t>(row++) * stride] = hmant;
-    out[static_cast<size_t>(row++) * stride] = iszero;
-  }
-  row = write_variants<NSEG>(out, row, stride, raw, br, p);
-  if (p.zvg) row = write_variants<NSEG>(out, row, stride, hraw, bh, p);
-  if (p.hist) {
-#pragma unroll
-    for (int bit = 0; bit < kWordBits; ++bit)
-      out[static_cast<size_t>(row++) * stride] = ones[bit];
-  }
-}
-
-
 // ------------------------------------------------------------------------
 // The chunked walk: the TPU kernel's "parallel" algorithm (the reference's
 // _compose_packed and its MAX scan over cycle << 16 | word), laid out for
@@ -332,9 +227,11 @@ __device__ __forceinline__ void walk_lane(const Load& load, int T, bool valid,
 //     give every chunk its start state (held word, both invert words; the
 //     previous word and is-zero bit are the stream's own word at t0 - 1);
 //   pass 2: each thread re-walks its chunk from that state and counts
-//     every row as walk_lane does; the counts are integers, summed in
-//     shared memory and then across the cluster, so exact in any order.
-constexpr int kWalkWarps = 8;   // chunks a block, one warp each
+//     every row (Walk::step); the counts are integers, summed in shared
+//     memory and then across the cluster, so exact in any order.
+// walk_grouped (K1, below) is this walk laid out for batched and wide
+// streams; it shares these pieces.
+constexpr int kWalkWarps = 8;   // warps a block, one chunk each
 constexpr int kMaxRows = 6 + 4 * kMaxVariants + kWordBits;
 
 // A packed step function of the invert lines: the lines after the step
@@ -458,12 +355,12 @@ struct ChunkShared {
 // walk then waits a memory latency a cycle.
 constexpr int kAhead = 8;    // cycles a chunked walk loads at once
 
-// The words of cycles u0 .. u0 + kAhead - 1 (those past t1 repeat t1 - 1's).
-template <typename Load>
+// The words of cycles u0 .. u0 + N - 1 (those past t1 repeat t1 - 1's).
+template <int N, typename Load>
 __device__ __forceinline__ void load_ahead(const Load& load, int u0, int t1,
-                                           uint32_t (&buf)[kAhead]) {
+                                           uint32_t (&buf)[N]) {
 #pragma unroll
-  for (int i = 0; i < kAhead; ++i)
+  for (int i = 0; i < N; ++i)
     buf[i] = load(min(u0 + i, t1 - 1)) & 0xFFFFu;
 }
 
@@ -536,9 +433,10 @@ __device__ __forceinline__ Walk<NSEG> walk_chunk(const Load& load, int t0,
 // is one of the stream's) over T cycles, by one cluster of blocks of
 // kWalkWarps warps, every block calling it with the same arguments: chunk
 // `rank * kWalkWarps + warp` covers cycles [c * C, min(T, (c + 1) * C)).
-// `load`, `rz`, `out` and `stride` as walk_lane takes them; rz is summed
-// into with atomics (zeroed by the caller), out written by the cluster's
-// first block; `load` as the note above summarize asks.
+// `load(t)` returns the lane's word at cycle t, as the note above
+// summarize asks; `out` points at the lane's first counter row, the rows
+// `stride` words apart, written by the cluster's first block; `rz` at the
+// stream's rowzeros[T], summed into with atomics (zeroed by the caller).
 template <int NSEG, typename Load>
 __device__ __forceinline__ void walk_chunked(const Load& load, int T, int C,
                                              bool valid,
@@ -599,6 +497,247 @@ __device__ __forceinline__ void walk_chunked(const Load& load, int T, int C,
     for (int row = 0; row < n_rows; ++row)
       out[static_cast<size_t>(row) * stride] = sm.counts[row][lane];
   cluster.sync();    // no block leaves while its counts may be read
+}
+
+
+// ------------------------------------------------------------------------
+// The grouped walk (K1, and K6's invert scan): the chunked walk laid out
+// for batched and wide streams, from a plan (kernels/power_counters/
+// kernel.py::counter_plan) that trades chunks for lane groups. A block of
+// kWalkWarps warps holds kWalkWarps / `split` lane groups (32 adjacent
+// lanes of one stream of the batch), `split` warps a group; the `cl`
+// blocks of a cluster hold the same groups, so a group is cut into
+// cl * split chunks: warp `sub` of its group in block `rank` walks chunk
+// c = rank * split + sub, cycles [c * C, min(T, (c + 1) * C)).
+//   * A group of one chunk (split = cl = 1: short streams, or enough groups
+//     to fill the card) is walked in one pass from the all-zero bus
+//     (walk_whole).
+//   * Otherwise pass 1 summarises each chunk, and each warp folds, itself,
+//     the summaries before its chunk (chunk_start): those of the earlier
+//     blocks of its cluster (a cluster holds one group a block), read from
+//     distributed shared memory all at once after one cluster barrier,
+//     then those of the earlier warps of its block. A block's only other
+//     wait on the cluster is at its end, for the others to have read its
+//     summary.
+// K1's counts go to global memory directly: stored by a walk in one pass,
+// summed by atomics (integers, exact in any order; zeroed by the caller)
+// when a group has several chunks, so no count is staged in shared memory.
+
+// Launches a walk kernel over `blocks` blocks of kWalkWarps warps, in
+// clusters of `cl` blocks along x where cl > 1 (past the portable 8 the
+// kernel is allowed the non-portable size first).
+template <typename... Params, typename... Args>
+inline cudaError_t launch_walk(void (*kernel)(Params...), unsigned blocks,
+                               int cl, cudaStream_t stream, Args... args) {
+  if (cl > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kWalkWarps * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Arrive at and wait on the cluster's barrier apart (cluster.sync() is
+// both), so that a block waits only where it must.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One kind of chunk summary, for chunk_start: the counter walk's (held
+// register and both invert recurrences) ...
+template <int NSEG>
+struct CounterScan {
+  using Sum = ChunkSum;
+  using Start = ChunkStart;
+  static constexpr int kWords = 6;
+  const Params& p;
+  __device__ __forceinline__ Sum identity() const { return chunk_identity(); }
+  __device__ __forceinline__ Sum then(const Sum& a, const Sum& b) const {
+    return chunk_then<NSEG>(a, b, p);
+  }
+  __device__ __forceinline__ Start apply(const Sum& c, Start s) const {
+    return chunk_apply<NSEG>(c, s, p);
+  }
+  __device__ __forceinline__ void put(uint32_t (*dst)[32], int lane,
+                                      const Sum& c) const {
+    put_sum(dst, lane, c);
+  }
+  __device__ __forceinline__ Sum get(const uint32_t (*src)[32],
+                                     int lane) const {
+    return get_sum(src, lane);
+  }
+};
+
+// ... and one invert line's (K6): its composed step function.
+struct InvertScan {
+  using Sum = Fn;
+  using Start = uint32_t;
+  static constexpr int kWords = 2;
+  __device__ __forceinline__ Sum identity() const { return fn_identity(); }
+  __device__ __forceinline__ Sum then(Sum a, Sum b) const {
+    return fn_then(a, b);
+  }
+  __device__ __forceinline__ Start apply(Sum f, Start s) const {
+    return fn_apply(f, s);
+  }
+  __device__ __forceinline__ void put(uint32_t (*dst)[32], int lane,
+                                      Sum f) const {
+    dst[0][lane] = f.f0;
+    dst[1][lane] = f.f1;
+  }
+  __device__ __forceinline__ Sum get(const uint32_t (*src)[32],
+                                     int lane) const {
+    return {src[0][lane], src[1][lane]};
+  }
+};
+
+constexpr int kMaxCluster = 16;   // blocks of a cluster (non-portable)
+
+template <int WORDS>
+struct ScanShared {
+  uint32_t sum[kWalkWarps][WORDS][32];   // each warp's chunk
+  uint32_t agg[WORDS][32];               // the block's chunks, composed
+  uint32_t earlier[kMaxCluster][WORDS][32];   // the earlier blocks' aggs
+};
+
+// The start state of this warp's chunk, from `mine`, the summary of its
+// own chunk (the identity for a warp without a stream), with every warp of
+// the block calling it; see the section's note. A cluster (cl > 1) holds
+// one group a block (split = kWalkWarps): its blocks' compositions are
+// read from distributed shared memory all at once, a warp a block, and
+// folded locally. With cl > 1 the caller must call cluster_wait() before
+// it leaves.
+template <class Scan>
+__device__ __forceinline__ typename Scan::Start chunk_start(
+    const Scan& scan, const typename Scan::Sum& mine, int split, int cl,
+    ScanShared<Scan::kWords>& sm) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = warp % split;
+  scan.put(sm.sum[warp], lane, mine);
+  __syncthreads();
+  typename Scan::Sum before = scan.identity();   // this block's, earlier
+  for (int w = warp - sub; w < warp; ++w)
+    before = scan.then(before, scan.get(sm.sum[w], lane));
+  typename Scan::Start st{};
+  if (cl > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = cluster.block_rank();
+    if (warp == kWalkWarps - 1) scan.put(sm.agg, lane, scan.then(before, mine));
+    cluster.sync();   // every block's chunks are composed
+    for (int q = warp; q < rank; q += kWalkWarps) {
+      const uint32_t* src = cluster.map_shared_rank(&sm.agg[0][0], q);
+#pragma unroll
+      for (int i = 0; i < Scan::kWords; ++i)
+        sm.earlier[q][i][lane] = src[i * 32 + lane];
+    }
+    cluster_arrive();   // this block has read the others
+    __syncthreads();
+    for (int q = 0; q < rank; ++q)
+      st = scan.apply(scan.get(sm.earlier[q], lane), st);
+  }
+  return scan.apply(before, st);
+}
+
+// The one-pass walk of a block's groups over all T cycles from the
+// all-zero bus, every warp of the block calling it (a warp without a group
+// walks zeros). The rowzeros ballots of a batch of cycles are summed in
+// shared memory over the block's warps of one stream, and their first warp
+// adds the sums, one atomic a stream and cycle: the groups of a wide
+// stream add into the same T counters, where an atomic a warp and cycle
+// queued hundreds deep on each (392 groups of MobileNetV1's first
+// depthwise batch). `b` is the warp's stream, `rz` its rowzeros.
+template <int NSEG, typename Load>
+__device__ __forceinline__ Walk<NSEG> walk_whole(const Load& load, int T,
+                                                 bool live, bool valid,
+                                                 int b,
+                                                 int32_t* __restrict__ rz,
+                                                 const Params& p) {
+  __shared__ int zeros[2][kWalkWarps][kAhead];   // by batch parity
+  __shared__ int stream[kWalkWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) stream[warp] = live ? b : -1;
+  Walk<NSEG> wk;
+  for (int u0 = 0, k = 0; u0 < T; u0 += kAhead, k ^= 1) {
+    uint32_t buf[kAhead];
+    load_ahead(load, u0, T, buf);
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (u0 + i >= T) break;   // the same for the whole block
+      const bool z = valid && (buf[i] & kNotSign) == 0u;
+      const unsigned zb = __ballot_sync(0xFFFFFFFFu, z);
+      if (lane == 0) zeros[k][warp][i] = __popc(zb);
+      wk.step(buf[i], z, p);
+    }
+    __syncthreads();   // the batch's counts are in
+    const int me = stream[warp];
+    if (lane < kAhead && u0 + lane < T && me >= 0 &&
+        (warp == 0 || stream[warp - 1] != me)) {
+      int n = 0;
+      for (int w = warp; w < kWalkWarps && stream[w] == me; ++w)
+        n += zeros[k][w][lane];
+      if (n) atomicAdd(&rz[u0 + lane], n);
+    }
+  }
+  return wk;
+}
+
+// The grouped counter walk of this warp's lane: `live` where the warp has
+// a group of the batch (of stream `b`), `valid` where the lane is one of
+// its stream's; `load(t)` as the note above summarize asks, `out` at the
+// lane's first counter row (rows `stride` words apart), `rz` at its
+// stream's rowzeros[T]; every warp of the block calls it with the same
+// plan, whose split * cl is 1 exactly when ONE_PASS (an instantiation of
+// its own, which carries none of the fold's registers).
+template <int NSEG, bool ONE_PASS, typename Load>
+__device__ __forceinline__ void walk_grouped(const Load& load, int T, int C,
+                                             int split, int cl, bool live,
+                                             bool valid, int b,
+                                             int32_t* __restrict__ rz,
+                                             int32_t* __restrict__ out,
+                                             size_t stride, const Params& p,
+                                             ScanShared<6>& sm) {
+  if constexpr (ONE_PASS) {   // one chunk a group: counts stored
+    const Walk<NSEG> wk = walk_whole<NSEG>(load, T, live, valid, b, rz, p);
+    if (valid)
+      wk.emit([&](int row, int v) {
+        out[static_cast<size_t>(row) * stride] = v;
+      }, p);
+  } else {
+    const int sub = (threadIdx.x / 32) % split;
+    const int rank =
+        cl > 1 ? static_cast<int>(
+                     cooperative_groups::this_cluster().block_rank())
+               : 0;
+    const int c = rank * split + sub;
+    const int t0 = min(T, c * C), t1 = min(T, t0 + C);
+    const CounterScan<NSEG> scan{p};
+    const ChunkStart st = chunk_start(
+        scan, live ? summarize<NSEG>(load, t0, t1, valid, rz, p)
+                   : chunk_identity(),
+        split, cl, sm);
+    if (live && valid && t0 < t1)
+      walk_chunk<NSEG>(load, t0, t1, st, p)
+          .emit([&](int row, int v) {
+            atomicAdd(&out[static_cast<size_t>(row) * stride], v);
+          }, p);
+    if (cl > 1) cluster_wait();   // no block leaves while it may be read
+  }
 }
 
 }  // namespace pc

@@ -35,6 +35,7 @@ from repro_torch.kernels.power_counters import CounterSpec, edge_counters
 from repro_torch.kernels.power_counters import kernel as k1
 from repro_torch.kernels.bic_encode import kernel as k6
 from repro_torch.kernels.bic_encode import ref as ref6
+from repro_torch.kernels.power_counters.cases import PLAN_EDGES
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
 from repro_torch.kernels.transitions import kernel as k5
 from repro_torch.kernels.transitions import ref as ref5
@@ -104,6 +105,61 @@ def test_kernel_batched_and_31_segments(cuda):
     spec = CounterSpec(bic_variants=singles + pairs, zvg=True, hist=True)
     assert len(spec.unique_segments) == 31
     _assert_same(_words((300, 45), seed=4).to(cuda), spec)
+
+
+@pytest.mark.parametrize("L", [1, 33])
+@pytest.mark.parametrize("T", PLAN_EDGES)
+def test_kernel_at_the_plan_edges(cuda, T, L):
+    """K1 at every stream length of ``PLAN_EDGES`` (one pass, a group's
+    chunks in a block, across clusters of 2 to 16; T a multiple of the
+    chunks and one more or less, short and empty last chunks), int32 and
+    uint16 words."""
+    x = _words((T, L), seed=T * 3 + L).to(cuda)
+    _assert_same(x, FULL)
+    _assert_same(x, FULL, words=x.to(torch.int16).view(torch.uint16))
+
+
+@pytest.mark.parametrize("T", [1, 7, 9, 31, 33, 63, 65, 147, 1025])
+def test_kernel_at_the_plan_edges_wide(cuda, T):
+    """K1 over 12544 lanes (ResNet50's stem width: 392 groups, the plan's
+    block route) at the plan's edges."""
+    x = _words((T, 12544), seed=T).to(cuda)
+    _assert_same(x, FULL, words=x.to(torch.int16).view(torch.uint16))
+
+
+@pytest.mark.parametrize("B,T,L", [(5, 33, 33), (3, 4609, 20),
+                                   (7, 1025, 45), (1024, 9, 64),
+                                   (32, 9, 3136), (2, 129, 12544),
+                                   (65535, 1, 1)], ids=str)
+def test_kernel_batches_with_ragged_lanes(cuda, B, T, L):
+    """Batches whose groups share blocks across streams (one pass, 8
+    groups a block) or split T (block and cluster routes), ragged L."""
+    x = _words((B, T, L), seed=B + T + L).to(cuda)
+    _assert_same(x, FULL, words=x.to(torch.int16).view(torch.uint16))
+
+
+def test_kernel_31_segments_at_4609(cuda):
+    """The widest spec on the longest plan: 31 unique segments, zvg and
+    hist, T = 4609 (128 chunks of 37 in clusters of 16), both words."""
+    singles = tuple((1 << b,) for b in range(15))
+    pairs = tuple(((1 << b) | (1 << ((b + 3) % 16)),) for b in range(16))
+    spec = CounterSpec(bic_variants=singles + pairs, zvg=True, hist=True)
+    assert len(spec.unique_segments) == 31
+    x = _words((4609, 40), seed=31).to(cuda)
+    _assert_same(x, spec)
+    _assert_same(x, spec, words=x.to(torch.int16).view(torch.uint16))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_kernel_every_route_equals_plain(cuda, chunks):
+    """Whatever the plan, the counters are the plain version's: every
+    chunk count a group can take (one pass, 2-8 warps of a block,
+    clusters of 2-16) on one batch of ragged streams."""
+    x = _words((2, 1000, 70), seed=chunks).to(cuda)
+    plan = k1.split_plan(2, 1000, 70, chunks)
+    kc, kr = k1.fused_counters_cuda(x, FULL, plan)
+    pc, pr = fused_counters_ref(x, FULL)
+    assert torch.equal(kc, pc) and torch.equal(kr, pr)
 
 
 def test_auto_backend_launches_the_kernel(cuda):
@@ -545,6 +601,32 @@ def test_bic_encode_kernel_matches_plain(cuda, T, L):
             assert torch.equal(tx, want_tx) and torch.equal(inv, want_inv)
             dec = bic.bic_decode(tx, inv[:, None, :], (mask,))
             assert torch.equal(dec, x)
+
+
+@pytest.mark.parametrize("L", [1, 33])
+@pytest.mark.parametrize("T", PLAN_EDGES)
+def test_bic_encode_at_the_plan_edges(cuda, T, L):
+    """K6 at every stream length of ``PLAN_EDGES``, every mask of
+    ``BIC_MASKS``, int32 and uint16 words; the output decodes back."""
+    x = stream_words(T, L, seed=T * 5 + L)
+    for mask in BIC_MASKS:
+        for words in (x, x.to(torch.uint16)):
+            tx, inv = k6.bic_encode_cuda(words, mask)
+            want_tx, want_inv = ref6.bic_encode_ref(words, mask)
+            assert torch.equal(tx, want_tx) and torch.equal(inv, want_inv)
+            assert torch.equal(bic.bic_decode(tx, inv[:, None, :], (mask,)),
+                               x)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_bic_encode_every_route_equals_plain(cuda, chunks):
+    """Whatever the plan, K6 is the plain encoder: every chunk count."""
+    x = stream_words(1000, 70, seed=chunks)
+    plan = k1.split_plan(1, 1000, 70, chunks)
+    for mask in BIC_MASKS:
+        tx, inv = k6.bic_encode_cuda(x, mask, plan)
+        want_tx, want_inv = ref6.bic_encode_ref(x, mask)
+        assert torch.equal(tx, want_tx) and torch.equal(inv, want_inv)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

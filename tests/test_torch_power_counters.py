@@ -22,6 +22,8 @@ from repro.kernels.power_counters.ref import fused_counters_ref as j_ref
 from repro_torch.core import bic
 from repro_torch.kernels.power_counters import (CounterSpec, edge_counters,
                                                 resolve_backend)
+from repro_torch.kernels.power_counters.cases import (PLAN_EDGES,
+                                                     chunk_coverage)
 from repro_torch.kernels.power_counters.ref import fused_counters_ref
 
 #: jitted so that cases of one shape and spec compile the kernel once
@@ -182,3 +184,69 @@ def test_counter_spec_validation():
     spec = CounterSpec(bic_variants=((0x7F,),), zvg=True, hist=True)
     assert spec.rows[:3] == ("raw", "mant_raw", "zeros")
     assert spec.n_rows == 3 + 3 + 2 + 2 + 16
+
+
+# ------------------------------------------------- the card kernel's plan
+#: (B, T, L): ResNet50's stem west edge, its stage-4 west and north edges
+#: (s4b1.c2, K = 4608), MobileNetV1's first and last depthwise batches,
+#: the serving accountant's prefill edges (Qwen1.5-0.5B, K sampled to
+#: 1024: 128 prompt rows west, 256 weight columns north), and edges
+PLAN_SHAPES = [(1, 147, 12544), (1, 4608, 64), (1, 4608, 512),
+               (32, 9, 12544), (1024, 9, 64), (1, 1024, 128),
+               (1, 1024, 256), (1, 1, 1), (3, 4609, 20), (5, 33, 33),
+               (7, 1025, 45), (1, 64, 3136), (65535, 1, 1)]
+
+
+@pytest.mark.parametrize("B,T,L", PLAN_SHAPES, ids=str)
+def test_counter_plan_covers_every_cycle_of_every_lane_once(B, T, L):
+    """Every cycle of every lane of every stream of the batch lies in
+    exactly one chunk; a group's chunks fit one block or a cluster of at
+    most 16 (the non-portable limit the launch asks for past 8), the grid
+    fits CUDA's x dimension, and the chunks cover T."""
+    from repro_torch.kernels.power_counters.kernel import (WALK_MAX_CHUNKS,
+                                                           WALK_MIN_CHUNK,
+                                                           counter_plan)
+    plan = counter_plan(B, T, L)
+    assert plan.split in (1, 2, 4, 8)
+    assert 1 <= plan.cluster <= WALK_MAX_CHUNKS // 8 == 16
+    assert plan.cluster == 1 or plan.split == 8
+    assert plan.chunks * plan.chunk >= T
+    assert plan.chunks == 1 or T // plan.chunks >= WALK_MIN_CHUNK
+    assert 1 <= plan.blocks <= 2 ** 31 - 1
+    assert plan.blocks % plan.cluster == 0
+    if B * T * L <= 4_000_000:
+        assert (chunk_coverage(plan, B, T, L) == 1).all()
+
+
+def test_counter_plan_routes_at_the_main_path_shapes():
+    """The route and plan at the shapes the main paths launch: long
+    streams over few groups split T across clusters of 16 (128 chunks of
+    36 cycles at ResNet50's s4b1.c2 west edge), its north edge's 16 groups
+    across clusters of 8, the stem's 392 groups across 4 warps of a block,
+    the depthwise batches' 9 cycles in one pass with 8 groups a block, the
+    serving prefill's K = 1024 in clusters of 16, chunks of 8."""
+    from repro_torch.kernels.power_counters.kernel import counter_plan
+    want = {(1, 147, 12544): ("block", 37, 4, 1, 196),
+            (1, 4608, 64): ("cluster", 36, 8, 16, 32),
+            (1, 4608, 512): ("cluster", 72, 8, 8, 128),
+            (32, 9, 12544): ("one pass", 9, 1, 1, 1568),
+            (1024, 9, 64): ("one pass", 9, 1, 1, 256),
+            (1, 1024, 128): ("cluster", 8, 8, 16, 64),
+            (1, 1024, 256): ("cluster", 8, 8, 16, 128)}
+    for shape, (route, chunk, split, cluster, blocks) in want.items():
+        p = counter_plan(*shape)
+        assert (p.route, p.chunk, p.split, p.cluster, p.blocks) == (
+            route, chunk, split, cluster, blocks), shape
+    with pytest.raises(ValueError, match="B, T, L >= 1"):
+        counter_plan(1, 0, 5)
+
+
+@pytest.mark.parametrize("T", PLAN_EDGES)
+def test_plain_matches_jax_at_the_plan_edges(T):
+    """The plain version, which the card kernel is held to, against the
+    JAX reference (and the Pallas kernel in interpret mode up to 65
+    cycles) at every stream length of ``PLAN_EDGES``: one cycle, the
+    shortest split and one more or less, and the block's and clusters'
+    chunks and one more or less."""
+    _both(_sparse(T, 5, zf=0.5, seed=T), FULL, f"T={T}", pallas=T <= 65,
+          block_t=32 if T <= 65 else None)

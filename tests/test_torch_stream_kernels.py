@@ -21,7 +21,9 @@ from repro.kernels.transitions.kernel import transitions_pallas
 from repro.kernels.transitions.ref import transitions_ref as j_transitions_ref
 from repro_torch.core import bic, bits
 from repro_torch.kernels import bic_encode, count_transitions
-from repro_torch.kernels.bic_encode.kernel import bic_encode_cuda
+from repro_torch.kernels.bic_encode.kernel import bic_encode_cuda, bic_plan
+from repro_torch.kernels.power_counters.cases import (PLAN_EDGES,
+                                                     chunk_coverage)
 from repro_torch.kernels.transitions.kernel import transitions_cuda
 
 MANT = int(j_bits.MANT_MASK)
@@ -156,6 +158,56 @@ def test_bic_encode_decodes_back(mask):
 def test_bic_encode_rejects_bad_masks(mask, backend):
     with pytest.raises(ValueError, match="16-bit word"):
         bic_encode(_t(_u16((4, 2), seed=0)), mask, backend=backend)
+
+
+#: K6's main-path shapes ``(T, L)``: ResNet50's weight streams (stem
+#: 147 x 64, s1 3x3 576 x 64, s3 1x1 1024 x 256, s4 3x3 4608 x 512, the
+#: fc 2048 x 1000), the quickstart's 512 x 128, and edges
+BIC_PLAN_SHAPES = [(147, 64), (576, 64), (1024, 256), (4608, 512),
+                   (2048, 1000), (512, 128), (1, 1), (33, 33), (4609, 20)]
+
+
+@pytest.mark.parametrize("T,L", BIC_PLAN_SHAPES, ids=str)
+def test_bic_plan_covers_every_cycle_of_every_lane_once(T, L):
+    """K6's grid: every cycle of every lane lies in exactly one chunk, the
+    clusters stay within 16 and the grid within CUDA's x dimension."""
+    plan = bic_plan(T, L)
+    assert plan.split in (1, 2, 4, 8) and 1 <= plan.cluster <= 16
+    assert plan.chunks * plan.chunk >= T
+    assert 1 <= plan.blocks <= 2 ** 31 - 1
+    assert (chunk_coverage(plan, 1, T, L) == 1).all()
+
+
+def test_bic_plan_at_the_weight_streams():
+    """The plan pinned at ResNet50's largest weight stream (128 chunks of
+    36 in clusters of 16), its stem's (32 chunks of 5, clusters of 4) and
+    the quickstart's (128 chunks of 4)."""
+    want = {(4608, 512): ("cluster", 36, 8, 16, 256),
+            (147, 64): ("cluster", 5, 8, 4, 8),
+            (512, 128): ("cluster", 4, 8, 16, 64)}
+    for (T, L), (route, chunk, split, cluster, blocks) in want.items():
+        p = bic_plan(T, L)
+        assert (p.route, p.chunk, p.split, p.cluster, p.blocks) == (
+            route, chunk, split, cluster, blocks), (T, L)
+    assert bic_plan(7, 5000).route == "one pass"
+    with pytest.raises(ValueError, match="T, L >= 1"):
+        bic_plan(0, 3)
+
+
+@pytest.mark.parametrize("T", PLAN_EDGES)
+def test_bic_encode_plain_matches_jax_at_the_plan_edges(T):
+    """The plain encoder, which the card kernel is held to, against the
+    JAX reference (and the Pallas kernel in interpret mode up to 65
+    cycles) at the stream lengths on either side of the plan's chunks."""
+    x = _u16((T, 33), seed=T + 11)
+    tx, inv = bic_encode(_t(x), MANT)
+    rt, ri = j_bic_encode_ref(jnp.asarray(x), MANT)
+    _same(tx, rt)
+    _same(inv, ri)
+    if T <= 65:
+        jt, ji = bic_encode_pallas(jnp.asarray(x), MANT, block_t=32)
+        _same(tx, jt)
+        _same(inv, ji)
 
 
 # ---------------------------------------------------- wrappers, entries
