@@ -44,17 +44,28 @@ kernels' launch counts set to 0 just before it and read just after:
   to their plain versions, on every site. K6's plain version walks T in
   Python (some 55 k steps over the 54 sites); that one walk is also K6's
   plain time.
+* the model-wide power tracer, ``repro_torch.trace``: Qwen1.5-0.5B at
+  full width (random bf16 weights from seed 0) traced over a forward at
+  batch 2, seq 16 (217 sites) and over 3 decode steps after a prefill
+  (every site called 3 times), ResNet50 (54 sites) and MobileNetV1 (28,
+  13 depthwise) at 224 px. Kernels: K1 for every site's counters, K2 in
+  the decode steps' matmuls. Each trace is run cold, warm and under the
+  profiler; its recorded sites, fed through a capture with every plain
+  version, must give bitwise the same counters; then a two-geometry
+  sweep over Qwen1.5-0.5B and ResNet50.
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
 paged attention (K4), the wgmma tile-gated matmul (K7), K1's grouped
-counter walk and K6's chunked invert scan, and K7's library must hold
-wgmma and TMA-load instructions in its SASS; then the plans of K3
+counter walk, K6's chunked invert scan and K5's vector-load counter, and
+K7's library must hold wgmma and TMA-load instructions in its SASS; then
+the plans of K3
 (product split, walk chunks) and K4 (position split) at the serving
 shapes, K1's at the CNN and prefill launches it times one by one and
-K6's at three weight streams. Before the main paths, each kernel is held
-against its plain PyTorch version on the card (counters bitwise, K1 and
-K6 also at every edge of their plans; products within a stated
+K6's at three weight streams, K5's at four weight streams, the
+quickstart's words and its card cases. Before the main paths, each kernel
+is held against its plain PyTorch version on the card (counters bitwise,
+K1, K5 and K6 also at every edge of their plans; products within a stated
 tolerance; K4 in bfloat16 also per element against the float32 plain
 version, which must catch a planted fault in all 80 cases), and so are
 the operands the kernels once refused (K7 at any blocks, K2 on int8 and
@@ -62,7 +73,8 @@ at K past 32768); after them, each is timed at its main path's shapes
 with CUDA events and the profiler (K1 over ResNet50's 108 and
 MobileNetV1's 56 launches by both, and at each launch of
 ``K1_PLAN_SHAPES``; K3 per call and per launch, beside K2 alone at K3's
-product shape; K4 per launch and per paged step beside gather + SDPA).
+product shape; K4 per launch and per paged step beside gather + SDPA;
+K5 over the 54 weight streams and on the largest alone).
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -159,13 +171,19 @@ K1_PLAN_SHAPES = {"resnet50 stem west": (1, 147, 12544),
                   "prefill north": (1, 1024, 256)}
 
 
+#: K5's logged weight streams ``(T, L)`` (uint16): ResNet50's stem,
+#: a stage-1 3x3, the largest (s4 3x3) and the fc
+K5_PLAN_SHAPES = ((147, 64), (576, 64), (4608, 512), (2048, 1000))
+
+
 #: the redesigned kernels, by library: their ptxas lines (registers,
 #: shared memory, spills) are printed after the build
 REDESIGNED = {"zvg_matmul": ("stream_kernel", "walk_kernel"),
               "paged_attention": ("split_attention_kernel",),
               "zvg_tiled_matmul": ("wgmma_kernel", "gate_kernel"),
               "power_counters": ("counters_kernel",),
-              "bic_encode": ("bic_encode_kernel",)}
+              "bic_encode": ("bic_encode_kernel",),
+              "transitions": ("transitions_kernel",)}
 
 
 def ptxas_summary(name: str, kernels) -> list[str]:
@@ -212,6 +230,8 @@ def log_plans() -> None:
     from repro_torch.kernels.bic_encode.kernel import bic_plan
     from repro_torch.kernels.power_counters.kernel import (chunk_plan,
                                                            counter_plan)
+    from repro_torch.kernels.transitions.cases import TRANSITION_SHAPES
+    from repro_torch.kernels.transitions.kernel import transitions_plan
     from repro_torch.kernels.zvg_matmul import kernel as kz
 
     log(f"plan K3 product: {kz.decode_plan(1024, 256, 4)}")
@@ -224,6 +244,13 @@ def log_plans() -> None:
     for T, L in ((4608, 512), (147, 64), (512, 128)):
         plan = bic_plan(T, L)
         log(f"plan K6 {(T, L)}: {plan} ({plan.route})")
+    for T, L, wb in ([(T, L, 2) for T, L in K5_PLAN_SHAPES]
+                     + [(512, 128, 4)]
+                     + [(T, L, wb) for T, L in TRANSITION_SHAPES
+                        for wb in (2, 4)]):
+        plan = transitions_plan(T, L, wb)
+        log(f"plan K5 {(T, L)} {wb}-byte words: {plan} ({plan.warps} "
+            f"warps)")
 
 
 def log(msg: str) -> None:
@@ -400,6 +427,161 @@ def run_main_path(net: str, designs, n_sites: int):
         f"{s['saving_selected']!r}, saving_fixed {s['saving_fixed']!r}, "
         f"sites per design {json.dumps(counts, sort_keys=True)}")
     return layers, launches, wall
+
+
+#: the model-wide traces at full width: Qwen1.5-0.5B's forward at batch
+#: 2, seq 16 (24 layers x 9 matmuls + the head) and 3 decode steps after
+#: a prefill, ResNet50 and MobileNetV1 at 224 px (53 convs + fc; 27 + fc,
+#: 13 of them depthwise)
+TRACE_RUNS = {"qwen1.5-0.5b forward": 24 * 9 + 1,
+              "qwen1.5-0.5b decode": 24 * 9 + 1,
+              "resnet50": 54, "mobilenet": 28}
+TRACE_DECODE_STEPS = 3
+
+
+def trace_run(label: str, capture):
+    """One trace of ``TRACE_RUNS[label]`` into ``capture``, on the card
+    with the kernels (K1 for every site's counters, K2 in the decode
+    steps' matmuls)."""
+    from repro_torch.trace import sweep as sw
+
+    if label.startswith(SERVE_ARCH):
+        return sw.trace_arch(SERVE_ARCH, label.split()[-1], batch=2, seq=16,
+                             decode_steps=TRACE_DECODE_STEPS, smoke=False,
+                             capture=capture)
+    return sw.trace_cnn(label, res=224, capture=capture)
+
+
+def phase_trace() -> dict:
+    """The model-wide tracer (``repro_torch.trace``) at full width, each
+    trace of :data:`TRACE_RUNS` cold (K1 and K2 launches counted, its
+    sites recorded) and warm (host clock, synchronized); its profile
+    comes after the timing phases (:func:`phase_trace_busy`). Each must
+    give its site
+    count, unique names under its model's name, the kinds of its matmuls
+    (MobileNetV1's 13 depthwise convolutions as ``"dwconv"``), every
+    decode site called once a step, and ``0 < streaming_saving < 1``,
+    ``0 < streaming_share < 1``; the recorded sites fed through a capture
+    with every plain version (``backend="ref"``) must give bitwise the
+    same counters at every site. Then a two-geometry sweep (``paper16``,
+    ``mxu128``) over Qwen1.5-0.5B and ResNet50 at full width."""
+    import dataclasses
+
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.trace import sweep as sw
+    from repro_torch.trace.capture import TraceCapture
+
+    class Recording(TraceCapture):
+        """A capture that keeps every site it records."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.recorded = []
+
+        def record(self, site):
+            self.recorded.append(site)
+            super().record(site)
+
+    cfg = sw.make_capture_config()
+    ref_cfg = dataclasses.replace(cfg, monitor=dataclasses.replace(
+        cfg.monitor, backend="ref"))
+    out = {}
+    for label, n_sites in TRACE_RUNS.items():
+        counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda)
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        cap = Recording(cfg)
+        t0 = time.perf_counter()
+        rep = trace_run(label, cap)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        t0 = time.perf_counter()
+        trace_run(label, TraceCapture(cfg))
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        names = [s.name for s in rep.sites]
+        kinds = [s.kind for s in rep.sites]
+        prefix = label.split()[0] + "/"
+        if len(names) != n_sites or len(set(names)) != n_sites or not all(
+                n.startswith(prefix) and "/dot#" in n for n in names):
+            raise AssertionError(f"trace {label}: {len(names)} sites, "
+                                 f"expected {n_sites} named {prefix}...")
+        steps = TRACE_DECODE_STEPS if label.endswith("decode") else 1
+        if any(s.calls != steps for s in rep.sites):
+            raise AssertionError(f"trace {label}: calls "
+                                 f"{sorted({s.calls for s in rep.sites})}, "
+                                 f"expected {steps} at every site")
+        want_dw = 13 if label == "mobilenet" else 0
+        if kinds.count("dwconv") != want_dw or (
+                label in ("resnet50", "mobilenet")
+                and kinds.count("conv") != n_sites - 1 - want_dw):
+            raise AssertionError(f"trace {label}: kinds {kinds}")
+        if launches["fused_counters_cuda"] != 2 * len(cap.recorded) or (
+                launches["gated_row_matmul_cuda"]
+                != (169 * steps if label.endswith("decode") else 0)):
+            raise AssertionError(f"trace {label}: launches {launches} for "
+                                 f"{len(cap.recorded)} recorded calls")
+        sm = rep.summary()
+        if not (0.0 < sm["streaming_saving"] < 1.0
+                and 0.0 < sm["streaming_share"] < 1.0):
+            raise AssertionError(f"trace {label}: implausible {sm}")
+        ref = TraceCapture(ref_cfg)
+        for site in cap.recorded:
+            ref.record(site)
+        for name, acc in cap.sites.items():
+            r = ref.sites[name]
+            if (r.counters != acc.counters or r.zf_sum != acc.zf_sum
+                    or r.calls != acc.calls):
+                raise AssertionError(f"trace {label} {name}: counters with "
+                                     f"the kernels differ from the plain "
+                                     f"versions'")
+        out[label] = {
+            "sites": n_sites, "calls": len(cap.recorded),
+            "wall_cold_s": cold, "wall_warm_s": warm,
+            "launches": launches,
+            "streaming_saving": sm["streaming_saving"],
+            "total_saving": sm["total_saving"],
+            "streaming_share": sm["streaming_share"],
+            "mean_zero_fraction": sm["mean_zero_fraction"]}
+        log(f"trace {label} at full width: {n_sites} sites ("
+            f"{len(cap.recorded)} calls, kinds "
+            f"{json.dumps({k: kinds.count(k) for k in sorted(set(kinds))})}"
+            f"), wall cold {cold:.3f} s, warm {warm:.3f} s, launches "
+            f"{json.dumps(launches)}; streaming saving "
+            f"{sm['streaming_saving']!r}, total {sm['total_saving']!r}, "
+            f"streaming share {sm['streaming_share']!r}; counters with the "
+            f"kernels bitwise equal to the plain versions' at every site")
+    t0 = time.perf_counter()
+    cells = sw.run_sweep(archs=(SERVE_ARCH,), nets=("resnet50",),
+                         geometries=("paper16", "mxu128"), res=224,
+                         smoke=False)
+    log(f"trace sweep at full width ({time.perf_counter() - t0:.1f} s):")
+    for line in sw.format_sweep(cells).splitlines():
+        log(line)
+    out["sweep"] = [{k: v for k, v in c.row().items()
+                     if k != "design_savings"} for c in cells]
+    return out
+
+
+def phase_trace_busy(traces: dict) -> None:
+    """Each trace of :data:`TRACE_RUNS` once more, warm, under the
+    profiler: its kernels' device time and the device's busy share of
+    the wall time, added to ``traces``. It runs after every timing phase:
+    after profiles this large, CUPTI has delivered no device events to the
+    next small ones (the K1 shape timings)."""
+    from repro_torch.trace import sweep as sw
+    from repro_torch.trace.capture import TraceCapture
+
+    cfg = sw.make_capture_config()
+    for label in TRACE_RUNS:
+        prof = profile_once(f"trace {label}",
+                            lambda: trace_run(label, TraceCapture(cfg)))
+        traces[label]["profiled"] = prof
+        traces[label]["busy_share"] = prof and (prof["busy_ms"]
+                                                / prof["wall_ms"])
 
 
 def phase_breakdown(net: str, designs) -> dict:
@@ -1031,22 +1213,21 @@ def word_err(*pairs) -> int:
 def phase_stream_kernel_cases() -> tuple[int, int]:
     """K5 and K6 against their plain versions on the card, bitwise, over
     the case list of ``repro_torch.kernels.transitions.cases`` (every
-    mask, with and without ``init``, uint16 and int32 words); K6's output
-    must decode back to its input. Returns K5's and K6's largest
-    |kernel - plain| (0: bitwise equal)."""
+    mask, with and without ``init``, uint16 and int32 words; K5 also at
+    every edge of its plan); K6's output must decode back to its input.
+    Returns K5's and K6's largest |kernel - plain| (0: bitwise equal)."""
     from repro_torch.core import bic
     from repro_torch.kernels.bic_encode import kernel as k6
     from repro_torch.kernels.bic_encode.ref import bic_encode_ref
     from repro_torch.kernels.power_counters.cases import PLAN_EDGES
     from repro_torch.kernels.transitions import kernel as k5
-    from repro_torch.kernels.transitions.cases import (BIC_MASKS, BIC_SHAPES,
-                                                       TRANSITION_MASKS,
-                                                       TRANSITION_SHAPES,
-                                                       stream_words)
+    from repro_torch.kernels.transitions.cases import (
+        BIC_MASKS, BIC_SHAPES, TRANSITION_MASKS, TRANSITION_PLAN_EDGES,
+        TRANSITION_SHAPES, stream_words)
     from repro_torch.kernels.transitions.ref import transitions_ref
 
     n5 = n6 = err5 = err6 = 0
-    for T, L in TRANSITION_SHAPES:
+    for T, L in TRANSITION_SHAPES + TRANSITION_PLAN_EDGES:
         x = stream_words(T, L, seed=T + L)
         init = stream_words(1, L, seed=L)[0]
         for mask in TRANSITION_MASKS:
@@ -1530,6 +1711,16 @@ def phase_stream_timing(site_pass: dict) -> dict:
                      "L": big[1].shape[1],
                      "ms": time_ms(lambda: k6.bic_encode_cuda(
                          big[1], MANT_MASK), 5)}
+    big5 = max(sites, key=lambda s: s[1].numel())
+    t5["largest"] = {
+        "site": big5[0], "T": big5[1].shape[0], "L": big5[1].shape[1],
+        "ms": device_ms([lambda: k5.transitions_cuda(big5[1])] * 5),
+        "events_ms": time_ms(lambda: k5.transitions_cuda(big5[1]), 20),
+        "plan": k5.transitions_plan(*big5[1].shape, 2).__dict__}
+    log(f"transitions on the largest weight stream {big5[0]} "
+        f"{tuple(big5[1].shape)}: device {t5['largest']['ms']:.5f} ms "
+        f"(profiler), {t5['largest']['events_ms']:.5f} ms by CUDA events, "
+        f"plan {t5['largest']['plan']}")
     return {"k5": t5, "k6": t6, "k7": t7}
 
 
@@ -2063,6 +2254,7 @@ def main() -> int:
     err5 = max(err5, e5, site_pass["err5"])
     err6 = max(err6, e6, site_pass["err6"])
     site_launches = site_pass["launches"]
+    traces = phase_trace()
 
     breakdown = phase_breakdown("resnet50", designs)
     k1 = phase_timing(sites, msites)
@@ -2079,6 +2271,7 @@ def main() -> int:
     k4 = phase_paged_timing(cfg, paged["engine"], paged_requests(cfg.vocab))
     stream = phase_stream_timing(site_pass)
     k5, k6, k7 = stream["k5"], stream["k6"], stream["k7"]
+    phase_trace_busy(traces)
     n_sites = len(site_pass["sites"])
 
     from repro_torch.kernels.zvg_matmul import kernel as kz
@@ -2113,6 +2306,9 @@ def main() -> int:
                 k1["mobilenet"]),
         "counting_s": breakdown["counters_s"],
         "shapes": k1["shapes"],
+        "launches_trace": {k: v["launches"]["fused_counters_cuda"]
+                           for k, v in traces.items() if k != "sweep"},
+        "traces": traces,
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",
@@ -2120,6 +2316,8 @@ def main() -> int:
         "replaces": K2_REPLACES,
         "launches": serve_launches["gated_row_matmul_cuda"],
         "launches_paged_b": paged["b"]["launches_all"][
+            "gated_row_matmul_cuda"],
+        "launches_trace_decode": traces["qwen1.5-0.5b decode"]["launches"][
             "gated_row_matmul_cuda"],
         "max_abs_err": err2,
         "fault6": {"int8": fault6["k2_int8"], "long_k": fault6["k2_long_k"]},
@@ -2202,6 +2400,7 @@ def main() -> int:
                    f"streams at 224 px, device time (profiler), summed",
         "shapes": {"streams": n_sites, "words": sum(
             s[1].numel() for s in site_pass["sites"]), "dtype": "uint16"},
+        "largest": k5["largest"],
     }, {
         "name": "bic_encode",
         "route": "cuda",

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bits
+from repro_torch.trace import interpret
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,10 +195,15 @@ def _bn_relu(x, gamma, beta, relu=True):
 
 
 def _conv(x, w, stride, groups=1):
-    """NHWC x HWIO convolution with SAME padding."""
+    """NHWC x HWIO convolution with SAME padding; under the model-wide
+    tracer a seam emitting its im2col site (the padding is applied first,
+    so the site's patches are the SAME-padded ones)."""
     k = w.shape[0]
     xc = _pad_hw(x, k, stride).permute(0, 3, 1, 2)
-    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, groups=groups)
+    wc = w.permute(3, 2, 0, 1)
+    interpret.emit_conv(xc, wc, stride, 0, 1, groups)
+    with interpret.seam():
+        y = F.conv2d(xc, wc, stride=stride, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -268,7 +274,9 @@ class _Tracer:
         w = self.ws[name]
         if self.record:
             self._record(name, "fc", x, w)
-        return x @ w
+        interpret.emit_matmul(x, w)
+        with interpret.seam():
+            return x @ w
 
 
 def _forward_resnet50(tr: _Tracer, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here. The port holds
-the architectures it runs: Qwen1.5-0.5B (the rest of the JAX package's
-zoo is ROADMAP step 8)."""
+the architectures it runs, Qwen1.5-0.5B at its published widths and as a
+smoke config; the other archs of the JAX package's zoo (:data:`PENDING`)
+are ROADMAP queue 1 step 3, and asking for one says so."""
 from . import qwen1_5_0_5b
 
 _MODULES = [qwen1_5_0_5b]
@@ -8,8 +9,17 @@ _MODULES = [qwen1_5_0_5b]
 ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKES = {m.CONFIG.name: m.SMOKE for m in _MODULES}
 
+#: the JAX package's archs the port does not run yet
+PENDING = ("deepseek-67b", "deepseek-v2-lite-16b", "granite-3-2b",
+           "minicpm3-4b", "musicgen-medium", "phi3.5-moe-42b-a6.6b",
+           "qwen2-vl-72b", "recurrentgemma-9b", "xlstm-1.3b")
+
 
 def get_config(name: str, smoke: bool = False):
+    if name in PENDING:
+        raise KeyError(f"unknown arch {name!r} to the port: the rest of "
+                       f"the LM zoo is ROADMAP queue 1 step 3; it has "
+                       f"{sorted(ARCHS)}")
     table = SMOKES if smoke else ARCHS
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")

@@ -25,6 +25,13 @@ import torch
 from . import bic, power, systolic
 
 
+def _evaluate_operands(A, W, designs, backend=None):
+    """:func:`repro_torch.design.evaluate.evaluate_operands`, imported
+    late: ``repro_torch.design`` imports this package's modules."""
+    from repro_torch.design.evaluate import evaluate_operands
+    return evaluate_operands(A, W, designs, backend)
+
+
 @dataclasses.dataclass(frozen=True)
 class MonitorConfig:
     """What to stream, at which sampling caps, priced for which designs.
@@ -118,14 +125,36 @@ def sample_sizes(acts_shape, weights_shape,
     }
 
 
+def monitor_streams(A: torch.Tensor, W: torch.Tensor,
+                    cfg: MonitorConfig = DEFAULT_MONITOR) -> dict:
+    """The twin-design view of pre-shaped ``[M, K] x [K, N]`` operands
+    (no reshaping or sub-sampling): the paper pair of the config's
+    ``geometry`` / ``bic_segments`` / ``zvg``, priced with its
+    ``energy``. Returns ``{"report": <sa_stream_report counters>,
+    "power": <sa_power dict>}``, raw counters that aggregate across sites
+    with :func:`repro_torch.core.power.aggregate_savings`. Refuses an
+    explicit ``designs`` list: that goes through :func:`stream_counters`
+    or :func:`repro_torch.design.evaluate_operands`."""
+    if cfg.designs:
+        raise ValueError(
+            "monitor_streams is the legacy twin-design wrapper and cannot "
+            "price an explicit MonitorConfig.designs list; use "
+            "stream_counters (flat per-design counters) or "
+            "repro_torch.design.evaluate_operands")
+    rep = systolic.sa_stream_report(A, W, cfg.geometry,
+                                    tuple(cfg.bic_segments), cfg.zvg,
+                                    backend=cfg.backend)
+    return {"report": rep, "power": power.sa_power(rep, cfg.energy)}
+
+
 def stream_counters(A: torch.Tensor, W: torch.Tensor,
                     cfg: MonitorConfig = DEFAULT_MONITOR) -> dict:
     """Flat scalar counters (float32 0-d tensors) for one pre-shaped
-    ``[M, K] x [K, N]`` stream: per design ``e/<d>/<component>`` energies
-    (fJ) and ``h/<d>`` / ``v/<d>`` pipeline toggles, plus ``cycles`` and
-    ``zero_fraction``."""
-    from repro_torch.design.evaluate import evaluate_operands
-    ev = evaluate_operands(A, W, cfg.design_list, cfg.backend)
+    ``[M, K] x [K, N]`` stream, or ``[B]`` tensors for a batch ``[B, M,
+    K] x [B, K, N]`` (one counter launch per edge for all of it): per
+    design ``e/<d>/<component>`` energies (fJ) and ``h/<d>`` / ``v/<d>``
+    pipeline toggles, plus ``cycles`` and ``zero_fraction``."""
+    ev = _evaluate_operands(A, W, cfg.design_list, cfg.backend)
     return flatten_evaluated(ev, cfg.design_names)
 
 
@@ -187,9 +216,8 @@ def monitor_matmul(acts: torch.Tensor, weights: torch.Tensor,
     streaming savings and streaming share (primary design vs the
     reference design of ``cfg.design_list``), and the sample sizes
     actually streamed."""
-    from repro_torch.design.evaluate import evaluate_operands
     A, W = subsample_operands(acts, weights, cfg)
-    ev = evaluate_operands(A, W, cfg.design_list, cfg.backend)
+    ev = _evaluate_operands(A, W, cfg.design_list, cfg.backend)
     ref = ev[cfg.reference_design]
     pri = ev[cfg.primary_design]
     one = torch.tensor(1.0)
@@ -208,3 +236,21 @@ def monitor_matmul(acts: torch.Tensor, weights: torch.Tensor,
                     for k, v in sample_sizes(acts.shape, weights.shape,
                                              cfg).items()})
     return metrics
+
+
+#: size-metadata keys in monitor_matmul's output (not power metrics)
+SIZE_KEYS = ("full_m", "full_k", "full_n", "sample_m", "sample_k",
+             "sample_n")
+
+
+def summarize(layer_metrics: dict[str, dict]) -> dict:
+    """Mean metrics across monitored layers (for logging), as float32 0-d
+    tensors keyed ``power/<metric>_mean``; the size metadata of
+    :data:`SIZE_KEYS` is left out."""
+    if not layer_metrics:
+        return {}
+    keys = next(iter(layer_metrics.values())).keys()
+    return {f"power/{k}_mean": torch.stack(
+                [torch.as_tensor(m[k], dtype=torch.float32)
+                 for m in layer_metrics.values()]).mean()
+            for k in keys if k not in SIZE_KEYS}

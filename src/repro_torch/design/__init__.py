@@ -14,7 +14,8 @@ number of designs; ``select`` picks the cheapest design per site.
 Layers:
   point    -- Coding / DesignPoint / the paper pair / the named menu.
   evaluate -- menu-args grouping, per-design pricing, batched evaluation.
-  select   -- greedy per-site selection, swap deltas, pareto front.
+  select   -- greedy per-site selection (over energies, flat counters or
+              a trace report), swap deltas, pareto front.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from .evaluate import (design_energy, evaluate, evaluate_batched,
 from .point import (BIC, NONE, PAPER_BASELINE, PAPER_PAIR, PAPER_PROPOSED,
                     ZVG, ApproxPE, Coding, DesignPoint, named_designs,
                     paper_pair, resolve_designs)
-from .select import (SELECTED, Selection, pareto_front, select_sites,
-                     swap_deltas)
+from .select import (SELECTED, Selection, apply_selection, pareto_front,
+                     select_counters, select_sites, swap_deltas)
 
 __all__ = [
     "Coding", "DesignPoint", "ApproxPE", "BIC", "ZVG", "NONE",
@@ -32,5 +33,6 @@ __all__ = [
     "paper_pair", "named_designs", "resolve_designs",
     "design_energy", "evaluate", "evaluate_operands", "evaluate_batched",
     "menu_args", "savings",
-    "Selection", "SELECTED", "select_sites", "swap_deltas", "pareto_front",
+    "Selection", "SELECTED", "select_sites", "select_counters",
+    "apply_selection", "swap_deltas", "pareto_front",
 ]

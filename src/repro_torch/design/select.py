@@ -106,6 +106,24 @@ def swap_deltas(site_designs: Mapping[str, Mapping[str, Mapping]],
     return out
 
 
+def select_counters(site_counters: Mapping[str, Mapping[str, float]],
+                    reference: str = "baseline",
+                    primary: str = "proposed",
+                    candidates: Sequence[str] | None = None) -> Selection:
+    """Greedy selection straight off accumulated flat counters: the
+    incremental re-selection path. ``site_counters`` maps a site name to
+    summed :func:`repro_torch.core.monitor.stream_counters` keys (a
+    counter delta: one telemetry window's fold, or the difference of two
+    snapshots). Each site's delta is priced with ``counters_to_energy``
+    and fed to :func:`select_sites`; counters add across calls, so
+    selecting over a delta is selecting over that slice of traffic."""
+    from repro_torch.core import monitor
+    site_designs = {site: monitor.counters_to_energy(dict(counters))
+                    for site, counters in site_counters.items()}
+    return select_sites(site_designs, reference=reference, primary=primary,
+                        candidates=candidates)
+
+
 def pareto_front(objectives: Sequence[Sequence[float]]) -> list[int]:
     """Indices of the non-dominated points, every objective MINIMIZED.
 
@@ -127,3 +145,23 @@ def pareto_front(objectives: Sequence[Sequence[float]]) -> list[int]:
         if not dominated:
             front.append(i)
     return front
+
+
+def apply_selection(report, candidates: Sequence[str] | None = None
+                    ) -> Selection:
+    """Greedy selection over a :class:`repro_torch.trace.TraceReport`,
+    injected in place: each site gains a ``"selected"`` entry (a copy of
+    its winner's energies) in ``site.designs`` and names the winner in
+    ``site.selected``; ``report.designs`` gains ``"selected"`` so the
+    aggregates and the table pick it up. Returns the :class:`Selection`.
+    """
+    site_designs = {s.name: s.designs for s in report.sites}
+    sel = select_sites(site_designs, reference=report.reference,
+                       primary=report.primary, candidates=candidates)
+    for s in report.sites:
+        chosen = sel.choices[s.name]
+        s.designs[SELECTED] = dict(s.designs[chosen])
+        s.selected = chosen
+    if SELECTED not in report.designs:
+        report.designs = tuple(report.designs) + (SELECTED,)
+    return sel

@@ -8,10 +8,16 @@ GQA is computed in grouped form -- q reshaped to ``[B, S, Hkv, rep, D]``
 and contracted against the un-repeated K/V. Scores are float32; the
 probabilities are cast back to q's dtype before they meet V, as in the
 JAX package. These are plain tensor code there too (no Pallas kernel).
+Every einsum goes through :func:`repro_torch.trace.interpret.einsum`, the
+tracer's seam (plain ``torch.einsum`` with no trace running), and the
+prefill's loop over KV blocks names each block's frame ``scan[j]``, as the
+JAX package's ``lax.scan`` does.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.trace import interpret
 
 NEG_INF = -1e30
 
@@ -48,20 +54,22 @@ def chunked_attention(q, k, v, *, causal: bool = True, scale=None,
             pad = bk - kj.shape[1]
             kj = torch.cat([kj, kj.new_zeros((b, pad) + kj.shape[2:])], 1)
             vj = torch.cat([vj, vj.new_zeros((b, pad) + vj.shape[2:])], 1)
-        s_blk = torch.einsum("bqkrd,bskd->bkrqs", qg, kj).float() * scale
-        s_blk = _softcap(s_blk, softcap)
-        kpos = j0 + torch.arange(bk, device=q.device)
-        mask = (kpos < sk)[None, :]
-        if causal:
-            mask = mask & (qpos[:, None] >= kpos[None, :])
-        s_blk = torch.where(mask, s_blk, NEG_INF)
-        m_new = torch.maximum(m, s_blk.amax(dim=-1))
-        p = torch.exp(s_blk - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bkrqs,bskd->bkrqd", p.to(q.dtype), vj).float()
-        m = m_new
+        with interpret.scope(f"scan[{j0 // bk}]"):
+            s_blk = interpret.einsum("bqkrd,bskd->bkrqs", qg,
+                                     kj).float() * scale
+            s_blk = _softcap(s_blk, softcap)
+            kpos = j0 + torch.arange(bk, device=q.device)
+            mask = (kpos < sk)[None, :]
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            s_blk = torch.where(mask, s_blk, NEG_INF)
+            m_new = torch.maximum(m, s_blk.amax(dim=-1))
+            p = torch.exp(s_blk - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + interpret.einsum(
+                "bkrqs,bskd->bkrqd", p.to(q.dtype), vj).float()
+            m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]      # [B,kv,rep,S,Dv]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
@@ -74,13 +82,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
     hkv = k_cache.shape[2]
     qg = _group_q(q, hkv)
     scale = scale if scale is not None else d ** -0.5
-    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache).float() * scale
+    scores = interpret.einsum("bqkrd,bskd->bkrqs", qg,
+                              k_cache).float() * scale
     scores = _softcap(scores, softcap)
     kpos = torch.arange(k_cache.shape[1], device=q.device)
     mask = kpos[None, :] < cache_len[:, None]            # [B, Smax]
     scores = torch.where(mask[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
+    out = interpret.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
     return out.reshape(b, 1, h, v_cache.shape[-1])
 
 
@@ -97,11 +106,12 @@ def paged_chunk_attention(q, k_cache, v_cache, positions_q, *, scale=None,
     hkv = k_cache.shape[2]
     qg = _group_q(q, hkv)
     scale = scale if scale is not None else d ** -0.5
-    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k_cache).float() * scale
+    scores = interpret.einsum("bqkrd,bskd->bkrqs", qg,
+                              k_cache).float() * scale
     scores = _softcap(scores, softcap)
     kpos = torch.arange(k_cache.shape[1], device=q.device)
     mask = kpos[None, None, :] <= positions_q[:, :, None]   # [B, C, Smax]
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
+    out = interpret.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
     return out.reshape(b, sq, h, v_cache.shape[-1])

@@ -4,7 +4,8 @@ package's ``ArchConfig``, field for field).
 Block specs are ``"<mixer>[+<ffn>]"`` strings. This slice of the port
 runs dense token LMs only: every block ``"attn+mlp"``, RMS norm and
 RoPE, with no MoE, MLA, RG-LRU or xLSTM sub-config. Any other
-architecture raises at construction (the LM zoo is ROADMAP step 8).
+architecture raises at construction (the rest of the LM zoo is ROADMAP
+queue 1 step 3).
 """
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ class ArchConfig:
                 f"with RMS norm and RoPE only (blocks {other or 'ok'}, "
                 f"sub-configs {subs or 'none'}, norm {self.norm!r}, pos "
                 f"{self.pos!r}, inputs {self.inputs!r}); the rest of the "
-                f"LM zoo is ROADMAP step 8")
+                f"LM zoo is ROADMAP queue 1 step 3")
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

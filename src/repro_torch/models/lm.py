@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.trace import interpret
+
 from . import layers as L
 from . import matmul as mm
 from . import transformer as T
@@ -68,7 +70,9 @@ def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
               backend: str | None = None) -> torch.Tensor:
     """``h [..., D] -> float32 logits [..., V]``, the head's matmul
     through :func:`.matmul.matmul`."""
-    out = mm.matmul(h, weights["head"], backend).float() * cfg.logit_mult
+    with interpret.scope("lm_head"):
+        out = mm.matmul(h, weights["head"], backend)
+    out = out.float() * cfg.logit_mult
     if cfg.logit_softcap > 0:
         out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
     return out
@@ -77,7 +81,8 @@ def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
 def _forward(weights: dict, cfg: ArchConfig, tokens, positions=None, *,
              states=None, prefill=False, cache_len=0, pages=None,
              backend=None):
-    x, positions = embed_inputs(weights["embed"], cfg, tokens, positions)
+    with interpret.scope("embed"):
+        x, positions = embed_inputs(weights["embed"], cfg, tokens, positions)
     x, states = T.apply_stack(weights["layers"], x, cfg, positions=positions,
                               states=states, prefill=prefill,
                               cache_len=cache_len, pages=pages,

@@ -13,6 +13,8 @@ runs it, never from module state:
   differential runs.
 
 Weights that are not 2-D take the plain path, as in the JAX package.
+Under the model-wide tracer (:mod:`repro_torch.trace.interpret`) it is a
+seam: it emits its site itself, whichever route runs the product.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.kernels.zvg_matmul import gated_row_matmul
+from repro_torch.trace import interpret
 
 
 def check_backend(backend: str | None) -> None:
@@ -31,6 +34,15 @@ def check_backend(backend: str | None) -> None:
 def matmul(x: torch.Tensor, w: torch.Tensor,
            backend: str | None = None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]`` through ``backend`` (see module doc)."""
+    if interpret.active():
+        if w.dim() == 2:
+            interpret.emit_matmul(x, w)
+        with interpret.seam():
+            return _matmul(x, w, backend)
+    return _matmul(x, w, backend)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, backend: str | None):
     if backend is None or w.dim() != 2:
         return x @ w
     out = gated_row_matmul(x.reshape(-1, x.shape[-1]), w, backend)

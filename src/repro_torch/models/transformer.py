@@ -22,14 +22,21 @@ Modes (one code path each, shared weights):
              :func:`.attention.paged_chunk_attention`.
 
 Projection weights keep the names ``wq``/``wk``/``wv``/``wo``: the power
-accountant's site names come from them.
+accountant's site names come from them. The model-wide tracer's names come
+from :func:`repro_torch.trace.interpret.scope`, opened where the JAX
+models open a ``named_scope`` (the block, its mixer and FFN, each
+projection) and at each layer group of the stack (``scan[g]``, the JAX
+package's scan iteration); with no trace running they do nothing.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.kernels.zvg_matmul import fused_paged_attention
 from repro_torch.kernels.zvg_matmul.ref import gather_pages
+from repro_torch.trace import interpret
 
 from . import attention as A
 from . import layers as L
@@ -94,10 +101,15 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     scale = cfg.attn_scale or None
 
     def proj(w, bname, nh):
-        y = mm.matmul(x, p[w], backend)
-        if bname in p:
-            y = y + p[bname]
+        with interpret.scope(w):
+            y = mm.matmul(x, p[w], backend)
+            if bname in p:
+                y = y + p[bname]
         return y.reshape(b, s, nh, hd)
+
+    def wo(out):
+        with interpret.scope("wo"):
+            return mm.matmul(out.reshape(b, s, h * hd), p["wo"], backend)
 
     q = proj("wq", "bq", h)
     k = proj("wk", "bk", kv)
@@ -120,8 +132,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             out = A.paged_chunk_attention(
                 q, gather_pages(kp, pages), gather_pages(vp, pages),
                 positions, scale=scale, softcap=cfg.attn_softcap)
-        out = mm.matmul(out.reshape(b, s, h * hd), p["wo"], backend)
-        return out, (kp, vp)
+        return wo(out), (kp, vp)
 
     if state is not None:                       # ---- single-token decode
         kc, vc = state
@@ -131,13 +142,12 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         vc[rows, bpos] = v[:, 0].to(vc.dtype)
         out = A.decode_attention(q, kc, vc, bpos + 1, scale=scale,
                                  softcap=cfg.attn_softcap)
-        out = mm.matmul(out.reshape(b, s, h * hd), p["wo"], backend)
-        return out, (kc, vc)
+        return wo(out), (kc, vc)
 
     out = A.chunked_attention(q, k, v, causal=True, scale=scale,
                               softcap=cfg.attn_softcap,
                               block_k=cfg.attn_block_k)
-    out = out.reshape(b, s, h * hd) @ p["wo"]
+    out = wo(out)
     if not prefill:
         return out, None
     pad = (b, cache_len - s, kv, hd)
@@ -146,18 +156,21 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 # -------------------------------------------------------------------- block
-def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
                 positions: torch.Tensor, state=None, prefill: bool = False,
                 cache_len: int = 0, pages: torch.Tensor | None = None,
                 backend: str | None = None):
+    mixer, ffn = parse_spec(spec)
     h = L.rms_norm(x, p["norm1"]["scale"])
-    out, new_state = apply_attention(p["mixer"], h, cfg, positions=positions,
-                                     state=state, prefill=prefill,
-                                     cache_len=cache_len, pages=pages,
-                                     backend=backend)
+    with interpret.scope(mixer):
+        out, new_state = apply_attention(
+            p["mixer"], h, cfg, positions=positions, state=state,
+            prefill=prefill, cache_len=cache_len, pages=pages,
+            backend=backend)
     x = x + cfg.resid_mult * out
     h = L.rms_norm(x, p["norm2"]["scale"])
-    x = x + cfg.resid_mult * L.apply_mlp(p["ffn"], h, cfg.act, backend)
+    with interpret.scope(ffn):
+        x = x + cfg.resid_mult * L.apply_mlp(p["ffn"], h, cfg.act, backend)
     return x, new_state
 
 
@@ -171,11 +184,32 @@ def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
     decode and paged steps (updated in place) and prefill, else
     ``None``."""
     new_states = [] if (states is not None or prefill) else None
-    for i, p in enumerate(layers):
-        x, st = apply_block(p, x, cfg, positions=positions,
-                            state=None if states is None else states[i],
-                            prefill=prefill, cache_len=cache_len,
-                            pages=pages, backend=backend)
+    for i, (p, spec) in enumerate(zip(layers, cfg.block_specs)):
+        with _layer_scope(cfg, i):
+            x, st = apply_block(p, x, cfg, spec, positions=positions,
+                                state=None if states is None else states[i],
+                                prefill=prefill, cache_len=cache_len,
+                                pages=pages, backend=backend)
         if new_states is not None:
             new_states.append(st)
     return x, new_states
+
+
+def _layer_scope(cfg: ArchConfig, i: int):
+    """Layer ``i``'s naming frames, as the JAX stack names them: ``head<i>``
+    and ``tail<i>`` for unrolled blocks, ``scan[g]/b<j>`` for block ``j`` of
+    scanned group ``g`` (``b<j>`` alone when the groups are not scanned)."""
+    if not interpret.active():
+        return contextlib.nullcontext()
+    n_head, n_pat = len(cfg.head), len(cfg.pattern)
+    n_body = cfg.n_groups * n_pat
+    if i < n_head:
+        return interpret.scope(f"head{i}")
+    if i >= n_head + n_body:
+        return interpret.scope(f"tail{i - n_head - n_body}")
+    g, j = divmod(i - n_head, n_pat)
+    stack = contextlib.ExitStack()
+    if cfg.scan_layers:
+        stack.enter_context(interpret.scope(f"scan[{g}]"))
+    stack.enter_context(interpret.scope(f"b{j}"))
+    return stack

@@ -1,14 +1,15 @@
 """Named-site capture: accumulate streaming-power counters per matmul
 site.
 
-A :class:`TraceCapture` keeps one :class:`SiteStats` per site name.
+A :class:`TraceCapture` keeps one :class:`SiteStats` per site name. Used
+as the tracer's ``emit`` (:func:`repro_torch.trace.interpret.trace_fn`),
+:meth:`TraceCapture.record` streams each :class:`MatmulSite`'s operands;
 :meth:`TraceCapture.record_counters` books counters a caller already
-holds (the serving engine, per retired request);
-:meth:`TraceCapture.record` streams one :class:`MatmulSite`'s operands
-itself. Per call at most ``max_batch`` batch elements and the monitor's
-row/col/depth caps are streamed, scaled back to the full extent; after
-``max_calls_per_site`` sampled calls a site only counts invocations and
-its energies extrapolate by ``calls / sampled_calls``.
+holds (the serving engine, per retired request). Per call at most
+``max_batch`` batch elements and the monitor's row/col/depth caps are
+streamed, scaled back to the full extent; after ``max_calls_per_site``
+sampled calls a site only counts invocations and its energies
+extrapolate by ``calls / sampled_calls``.
 """
 from __future__ import annotations
 
@@ -18,25 +19,7 @@ import torch
 
 from repro_torch.core import monitor
 
-
-@dataclasses.dataclass
-class MatmulSite:
-    """One matmul in systolic-array streaming form: ``lhs [B, M, K]``,
-    ``rhs [B, K, N]`` (B independent problems)."""
-    name: str
-    kind: str            # "dot_general" | "conv" | "dwconv"
-    lhs: torch.Tensor
-    rhs: torch.Tensor
-
-    @property
-    def shape(self) -> tuple[int, int, int, int]:
-        return (self.lhs.shape[0], self.lhs.shape[1], self.lhs.shape[2],
-                self.rhs.shape[2])
-
-    @property
-    def macs(self) -> float:
-        b, m, k, n = self.shape
-        return float(b) * m * k * n
+from .interpret import MatmulSite  # noqa: F401  (its home before)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +27,7 @@ class CaptureConfig:
     monitor: monitor.MonitorConfig = monitor.DEFAULT_MONITOR
     max_batch: int = 4            # batch elements streamed per call
     max_calls_per_site: int = 4   # calls fully sampled per site
+    include_conv: bool = True     # trace convolutions too
 
 
 DEFAULT_CAPTURE = CaptureConfig()
@@ -71,11 +55,14 @@ class SiteStats:
 
 
 class TraceCapture:
-    """Site registry."""
+    """Site registry; an instance is the tracer's ``emit``."""
 
     def __init__(self, cfg: CaptureConfig = DEFAULT_CAPTURE):
         self.cfg = cfg
         self.sites: dict[str, SiteStats] = {}
+
+    def __call__(self, site: MatmulSite):
+        self.record(site)
 
     def _site(self, name: str, kind: str, shape) -> SiteStats:
         acc = self.sites.get(name)
@@ -94,18 +81,23 @@ class TraceCapture:
         if acc.sampled_calls >= self.cfg.max_calls_per_site:
             return
         mcfg = self.cfg.monitor
+        # the sampled batch, each problem sub-sampled as the monitor does,
+        # streamed in one pass (one counter launch an edge); the counters
+        # arrive on the host as [bs] float32 tensors
         A3 = monitor._subsample(site.lhs, self.cfg.max_batch, 0)
         W3 = monitor._subsample(site.rhs, self.cfg.max_batch, 0)
-        per = [monitor.stream_counters(
-                   *monitor.subsample_operands(a, w, mcfg), mcfg)
-               for a, w in zip(A3, W3)]
-        per = {key: torch.tensor([float(p[key]) for p in per])
-               for key in per[0]}               # float32 [sampled batch]
+        A3 = monitor._subsample(monitor._subsample(A3, mcfg.max_rows, 1),
+                                mcfg.max_depth, 2)
+        W3 = monitor._subsample(monitor._subsample(W3, mcfg.max_depth, 1),
+                                mcfg.max_cols, 2)
+        bs = A3.shape[0]
+        per = {key: torch.broadcast_to(torch.as_tensor(v), (bs,))
+               for key, v in monitor.stream_counters(A3, W3, mcfg).items()}
         zf = float(per.pop("zero_fraction").mean())
-        counters = {key: float(v.sum()) for key, v in per.items()}
-        bs = min(b, self.cfg.max_batch)
+        keys = list(per)
+        sums = torch.stack([per[key].sum() for key in keys]).tolist()
         factor = (b / bs) * monitor.sampled_fraction_scale(m, k, n, mcfg)
-        acc.add({key: v * factor for key, v in counters.items()}, zf)
+        acc.add({key: v * factor for key, v in zip(keys, sums)}, zf)
 
     def record_counters(self, name: str, kind: str,
                         shape: tuple[int, int, int, int],

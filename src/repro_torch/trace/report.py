@@ -8,7 +8,7 @@ sites *before* taking ratios
 (:func:`repro_torch.core.power.aggregate_savings`). Savings are relative
 to the ``reference`` design (first of the monitor's list); headline
 numbers quote the ``primary`` design (the second). Reports serialize to
-JSON (round-trippable) and CSV.
+JSON (round-trippable), CSV and a text table.
 """
 from __future__ import annotations
 
@@ -191,6 +191,47 @@ class TraceReport:
                           else "" for d in self.designs)
             rows.append(vals)
         write_csv(path, cols, rows)
+
+    def table(self, max_rows: int = 40) -> str:
+        """The per-site text table (largest reference energy first, at
+        most ``max_rows`` rows) and the model's aggregate line."""
+        with_sel = any(s.selected for s in self.sites)
+        hdr = (f"{'site':52s} {'kind':8s} {'calls':>5s} "
+               f"{'B,M,K,N':>18s} {'zero%':>6s} {'act-red%':>8s} "
+               f"{'save%':>6s}")
+        if with_sel:
+            hdr += f" {'best':>9s} {'best%':>6s}"
+        lines = [hdr, "-" * len(hdr)]
+        shown = sorted(self.sites, key=lambda s: -s.energy(s.reference))
+        for s in shown[:max_rows]:
+            b, m, k, n = s.shape
+            name = s.name if len(s.name) <= 52 else "..." + s.name[-49:]
+            line = (
+                f"{name:52s} {s.kind:8s} {s.calls:5d} "
+                f"{f'{b},{m},{k},{n}':>18s} {s.zero_fraction*100:6.1f} "
+                f"{s.activity_reduction*100:8.1f} {s.saving_total*100:6.1f}")
+            if with_sel:
+                line += (f" {s.selected:>9s} "
+                         f"{s.saving(s.selected)*100:6.1f}"
+                         if s.selected else " " * 17)
+            lines.append(line)
+        if len(shown) > max_rows:
+            lines.append(f"... ({len(shown) - max_rows} more sites)")
+        sm = self.summary()
+        lines.append("-" * len(hdr))
+        lines.append(
+            f"{self.model}: {len(self.sites)} sites, "
+            f"{sm['macs']:.3g} MACs | mean zero "
+            f"{sm['mean_zero_fraction']*100:.1f}% "
+            f"| streaming saving {sm['streaming_saving']*100:.1f}% "
+            f"| total saving {sm['total_saving']*100:.1f}% "
+            f"(streaming share {sm['streaming_share']*100:.1f}%)")
+        extra = {d: v for d, v in sm["design_savings"].items()
+                 if d != self.primary}
+        if extra:
+            lines.append("designs vs " + self.reference + ": " + "  ".join(
+                f"{d}={v*100:.1f}%" for d, v in extra.items()))
+        return "\n".join(lines)
 
 
 def build_report(cap: TraceCapture, model: str,

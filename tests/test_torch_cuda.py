@@ -41,6 +41,7 @@ from repro_torch.kernels.transitions import kernel as k5
 from repro_torch.kernels.transitions import ref as ref5
 from repro_torch.kernels.transitions.cases import (BIC_MASKS, BIC_SHAPES,
                                                    TRANSITION_MASKS,
+                                                   TRANSITION_PLAN_EDGES,
                                                    TRANSITION_SHAPES,
                                                    stream_words)
 from repro_torch.kernels.zvg_matmul import kernel as kz
@@ -588,6 +589,66 @@ def test_transitions_kernel_matches_plain(cuda, T, L):
                 n += 1
                 assert torch.equal(got, want), (mask, i is None, words.dtype)
     assert k5.transitions_cuda.launches == before + n
+
+
+def _transitions_cases(x, init):
+    """K5 against its plain version under every mask, without and with
+    ``init``, as int32 and as uint16 words."""
+    for mask in TRANSITION_MASKS:
+        for i in (None, init):
+            want = ref5.transitions_ref(x, mask, i)
+            for words in (x, x.to(torch.uint16)):
+                got = k5.transitions_cuda(words, mask, i)
+                assert torch.equal(got, want), (mask, i is None, words.dtype)
+
+
+@pytest.mark.parametrize("T,L", TRANSITION_PLAN_EDGES, ids=str)
+def test_transitions_kernel_at_the_plan_edges(cuda, T, L):
+    """K5 bitwise at every edge of its plan (both routes, one block and
+    clusters of up to 16, the lengthened chunks of a 4 M-cycle stream)."""
+    _transitions_cases(stream_words(T, L, seed=T * 3 + L),
+                       stream_words(1, L, seed=L + 1)[0])
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("L", [72, 70])
+def test_transitions_every_cluster_equals_plain(cuda, cluster, L):
+    """Whatever the plan, K5 is the plain counter: every cluster size, at
+    every tile width of the vector route (L = 72) and on the scalar one
+    (L = 70)."""
+    x = stream_words(1000, L, seed=cluster)
+    init = stream_words(1, L, seed=cluster + 1)[0]
+    for words in (x, x.to(torch.uint16)):
+        wb = words.element_size()
+        for tx in k5._route(L, wb, True)[2]:
+            plan = k5.split_transitions(1000, L, wb, cluster, tx=tx)
+            for mask in TRANSITION_MASKS:
+                for i in (None, init):
+                    got = k5.transitions_cuda(words, mask, i, plan)
+                    assert torch.equal(got, ref5.transitions_ref(x, mask, i))
+
+
+def test_transitions_misaligned_words_take_the_scalar_route(cuda):
+    """A contiguous view whose base is not 16-byte aligned, and rows whose
+    pitch is not (L = 33), take the scalar route and count the same; a
+    vector plan forced onto the unaligned base is refused by the C entry,
+    not run."""
+    base = stream_words(1, 600 * 64 + 8, seed=9)[0]
+    for words in (base, base.to(torch.uint16)):
+        x = words[1:1 + 600 * 64].view(600, 64)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+        assert k5.transitions_plan(600, 64, x.element_size(),
+                                   False).route == "scalar"
+        want = ref5.transitions_ref(x.to(torch.int32), 0x7F)
+        assert torch.equal(k5.transitions_cuda(x, 0x7F), want)
+        vector = k5.transitions_plan(600, 64, x.element_size())
+        assert vector.route == "vector"
+        with pytest.raises(RuntimeError, match="launch failed"):
+            k5.transitions_cuda(x, 0x7F, plan=vector)
+    x = stream_words(300, 33, seed=10)
+    assert k5.transitions_plan(300, 33, 2).route == "scalar"
+    assert torch.equal(k5.transitions_cuda(x.to(torch.uint16)),
+                       ref5.transitions_ref(x))
 
 
 @pytest.mark.parametrize("T,L", BIC_SHAPES)

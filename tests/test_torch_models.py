@@ -72,11 +72,11 @@ def test_config_registry_matches_the_jax_package():
 
 
 def test_blocks_other_than_attn_mlp_name_roadmap_step_8():
-    with pytest.raises(NotImplementedError, match="ROADMAP step 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 3"):
         ArchConfig(name="x", family="hybrid", n_layers=3, d_model=8,
                    n_heads=2, n_kv_heads=2, d_ff=16, vocab=32,
                    pattern=("rglru+mlp", "rglru+mlp", "attn+mlp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP step 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 3"):
         SMOKES[ARCH].with_(pos="mrope")
 
 

@@ -24,7 +24,12 @@ from repro_torch.kernels import bic_encode, count_transitions
 from repro_torch.kernels.bic_encode.kernel import bic_encode_cuda, bic_plan
 from repro_torch.kernels.power_counters.cases import (PLAN_EDGES,
                                                      chunk_coverage)
-from repro_torch.kernels.transitions.kernel import transitions_cuda
+from repro_torch.kernels.transitions.cases import (TRANSITION_PLAN_EDGES,
+                                                   TRANSITION_SHAPES,
+                                                   transition_coverage)
+from repro_torch.kernels.transitions.kernel import (split_transitions,
+                                                    transitions_cuda,
+                                                    transitions_plan)
 
 MANT = int(j_bits.MANT_MASK)
 
@@ -192,6 +197,87 @@ def test_bic_plan_at_the_weight_streams():
     assert bic_plan(7, 5000).route == "one pass"
     with pytest.raises(ValueError, match="T, L >= 1"):
         bic_plan(0, 3)
+
+
+#: K5's main-path shapes ``(T, L)``: ResNet50's stem, stage-1 3x3,
+#: largest and fc weight streams (uint16), and the quickstart's words
+K5_PLAN_SHAPES = [(147, 64), (576, 64), (4608, 512), (2048, 1000)]
+
+
+@pytest.mark.parametrize("word_bytes", [2, 4])
+@pytest.mark.parametrize(
+    "T,L", sorted({*K5_PLAN_SHAPES, (512, 128), *TRANSITION_SHAPES,
+                   *TRANSITION_PLAN_EDGES}), ids=str)
+def test_transitions_plan_covers_every_cycle_of_every_lane_once(T, L,
+                                                                word_bytes):
+    """K5's grid: every cycle of every lane is counted by exactly one
+    thread, the cluster stays within the portable 8 blocks, a thread's
+    chunk within the C entry's int range, and a tile within the block's
+    64 lanes."""
+    for aligned in (True, False):
+        plan = transitions_plan(T, L, word_bytes, aligned)
+        assert 1 <= plan.cluster <= 8 and plan.cycles >= 1
+        assert plan.lanes <= 64 and 256 % plan.tx == 0
+        assert plan.cluster * plan.rows * plan.cycles < 2 ** 31
+        assert (transition_coverage(plan, T, L) == 1).all()
+
+
+@pytest.mark.parametrize("word_bytes", [2, 4])
+def test_transitions_vector_route_only_where_16_bytes_align(word_bytes):
+    """The 16-byte route needs L a multiple of the vector (8 uint16 or 4
+    int32 words) and an aligned base; anything else takes the scalar
+    route, chosen by shape and address, not after a failure."""
+    vec = 16 // word_bytes
+    for L in range(1, 70):
+        plan = transitions_plan(100, L, word_bytes)
+        assert plan.route == ("vector" if L % vec == 0 else "scalar")
+        assert plan.vec == (vec if L % vec == 0 else 1)
+        assert transitions_plan(100, L, word_bytes, False).route == "scalar"
+    for T, L in K5_PLAN_SHAPES:     # every ResNet50 weight stream aligns
+        assert transitions_plan(T, L, 2).route == "vector"
+
+
+def test_transitions_plan_at_the_main_path_shapes():
+    """The plan pinned where the main paths run K5: one batch of loads a
+    thread everywhere, a cluster only where no tile width covers T in one
+    block (the largest stream, 4608 x 512: tiles of 16 lanes, 128 rows a
+    block, clusters of 5), the widest tile that does otherwise (the stem's
+    64 lanes, the fc's 8)."""
+    want = {(147, 64, 2): ("vector", 8, 5, 1, 1),
+            (576, 64, 2): ("vector", 2, 5, 1, 4),
+            (4608, 512, 2): ("vector", 2, 8, 5, 32),
+            (2048, 1000, 2): ("vector", 1, 8, 1, 125),
+            (512, 128, 4): ("vector", 4, 8, 1, 8),
+            (1, 1, 4): ("scalar", 1, 1, 1, 1),
+            (33, 257, 2): ("scalar", 32, 5, 1, 9)}
+    for (T, L, wb), (route, tx, cycles, cluster, tiles) in want.items():
+        p = transitions_plan(T, L, wb)
+        assert (p.route, p.tx, p.cycles, p.cluster, p.tiles) == (
+            route, tx, cycles, cluster, tiles), (T, L, wb)
+        assert p.batches == 1
+    with pytest.raises(ValueError, match="T, L >= 1"):
+        transitions_plan(0, 3, 2)
+    with pytest.raises(ValueError, match="2 or 4 bytes"):
+        transitions_plan(3, 3, 8)
+
+
+def test_transitions_plan_lengthens_chunks_not_the_cluster():
+    """Past what a cluster of 8 covers in one batch, the chunks grow: the
+    stream of 65535 * 64 + 1 cycles (beyond the most chunks the earlier
+    kernel's grid took) is 8 blocks of 256 rows, 2048 cycles a thread;
+    forced clusters keep their size, up to 16, and forced widths must be
+    the route's."""
+    T = 65535 * 64 + 1
+    p = transitions_plan(T, 1, 4)
+    assert (p.cluster, p.rows, p.cycles) == (8, 256, 2048)
+    assert p.cluster * p.rows * p.cycles >= T
+    for cl in (1, 2, 3, 16):
+        assert split_transitions(1000, 72, 2, cl).cluster == cl
+    with pytest.raises(ValueError, match="1 to 16 blocks"):
+        split_transitions(1000, 72, 2, 17)
+    assert split_transitions(1000, 72, 2, 1, tx=1).tiles == 9
+    with pytest.raises(ValueError, match="lane vectors"):
+        split_transitions(1000, 70, 2, 1, tx=4)
 
 
 @pytest.mark.parametrize("T", PLAN_EDGES)

@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Time the counter pass (K1) and the BIC encoder (K6) of this tree against
-an earlier version of their sources, in turns on one GPU, and sweep their
-plans at the main paths' shapes.
+"""Time stream kernels of this tree against an earlier version of their
+sources, in turns on one GPU, and sweep their plans at the main paths'
+shapes: the counter pass (K1) and the BIC encoder (K6) against their
+serial walks, the transition counter (K5) against its one-thread-a-lane
+kernel.
 
 Run from the repository root on a machine with an H100 and the CUDA
 toolkit:
 
-    python3 tools/walk_ab.py --old DIR [--sweep] [--out FILE]
+    python3 tools/walk_ab.py --old DIR [--kernels k5|k1,k6] [--sweep]
+                             [--out FILE]
 
-``DIR`` holds an earlier ``power_counters.cu``, ``power_counters.cuh``
-and ``bic_encode.cu`` whose C entries take no plan (the serial walks:
-``pc_fused_counters(x, word_bytes, B, T, L, counts, rowzeros, n_rows,
-...)`` and ``be_bic_encode(x, word_bytes, T, L, mask, tx, inv,
-stream)``), for example one unpacked with ``git archive <rev>
-src/repro_torch/csrc | tar -x -C build/old``. Both versions are built
-from source, held bitwise equal on every stream, then timed old, new,
-new, old over the main paths' launches: K1 over ResNet50's 108 and
-MobileNetV1's 56 edge streams at 224 px (device time by ``torch.profiler``
-and CUDA events), at each shape ``chip_smoke.py`` logs, and K6 over the 54
-ResNet50 weight streams (profiler; the largest alone by events).
-``--sweep`` also times every chunk count a lane group can take at each
-distinct K1 and K6 shape of those paths (profiler), beside the plan's
-own. Every line goes to standard output and to ``FILE``
-(``build/walk_ab.txt`` by default).
+``DIR`` holds the earlier sources, for example unpacked with ``git
+archive <rev> src/repro_torch/csrc | tar -x -C build/old``. For ``k5``
+(the default) it holds a ``transitions.cu`` whose C entry takes no plan
+and adds into a zeroed ``out`` (``tr_count_transitions(x, word_bytes,
+init, T, L, mask, out, stream)``); the earlier wrapper's zero fill is
+timed with it, as it ran. For ``k1,k6`` it holds a ``power_counters.cu``,
+``power_counters.cuh`` and ``bic_encode.cu`` whose C entries take no
+plan (the serial walks: ``pc_fused_counters(x, word_bytes, B, T, L,
+counts, rowzeros, n_rows, ...)`` and ``be_bic_encode(x, word_bytes, T, L,
+mask, tx, inv, stream)``). Both versions are built from source, held
+bitwise equal on every stream, then timed old, new, new, old over the
+main paths' launches. K5: over the 54 ResNet50 weight streams at 224 px
+(device time by ``torch.profiler``; the largest alone also by CUDA
+events) and at each shape ``chip_smoke.py`` logs (the stem, stage-1 3x3,
+largest and fc weight streams, the quickstart's int32 words).  K1: over
+ResNet50's 108 and MobileNetV1's 56 edge streams (profiler and CUDA
+events) and at each shape ``chip_smoke.py`` logs; K6 over the 54 weight
+streams (profiler; the largest alone by events). ``--sweep`` also times
+every cluster size (K5) or chunk count (K1, K6) a stream can take at each
+distinct shape of those paths (profiler), beside the plan's own. Every
+line goes to standard output and to ``FILE`` (``build/walk_ab.txt`` by
+default).
 """
 from __future__ import annotations
 
@@ -48,14 +58,15 @@ def say(msg: str) -> None:
     _OUT.append(msg)
 
 
-def build_old(src: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
-    """Compile the earlier sources (one ``nvcc`` each, both at once)."""
+def build_libs(src: Path, names) -> dict[str, ctypes.CDLL]:
+    """Compile the earlier sources ``names`` (one ``nvcc`` each, all at
+    once) and print their ptxas lines."""
     from repro_torch.kernels import _build
 
     out = ROOT / "build" / "walk_ab"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("power_counters", "bic_encode"):
+    for name in names:
         lib = out / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
@@ -70,6 +81,12 @@ def build_old(src: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
         for line in (out / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill stores" in line:
                 say(f"old {name} ptxas: {line.strip()}")
+    return libs
+
+
+def build_old(src: Path) -> tuple:
+    """The earlier K1 and K6 entries (the serial walks)."""
+    libs = build_libs(src, ("power_counters", "bic_encode"))
     k1 = libs["power_counters"].pc_fused_counters
     k1.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -81,6 +98,18 @@ def build_old(src: Path) -> tuple[ctypes.CDLL, ctypes.CDLL]:
                    ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     return k1, k6
+
+
+def old_transitions(fn, x: torch.Tensor, mask: int = 0xFFFF):
+    """The earlier K5 through its own C entry, as its wrapper called it:
+    a zero fill, then the kernel adding into it."""
+    T, L = x.shape
+    out = torch.zeros(L, dtype=torch.int32, device=x.device)
+    err = fn(x.data_ptr(), x.element_size(), None, T, L, mask,
+             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"old K5 failed: CUDA error {err}")
+    return out
 
 
 def old_counters(fn, x: torch.Tensor, spec):
@@ -133,6 +162,7 @@ def net_streams(net: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path, required=True)
+    ap.add_argument("--kernels", default="k5", choices=("k5", "k1,k6"))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "walk_ab.txt")
@@ -140,6 +170,87 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("walk_ab: no CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cudnn.deterministic = True
+    say(f"card: {cs.card_line()}")
+    (run_k5 if args.kernels == "k5" else run_k1_k6)(args)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text("\n".join(_OUT) + "\n")
+    return 0
+
+
+def k5_streams():
+    """K5's main-path streams: the 54 ResNet50 weight streams (uint16)
+    and the quickstart's weight words (int32 ``[512, 128]``), and the
+    logged ones by label."""
+    from repro_torch.apps import quickstart
+    from repro_torch.core.bits import to_bits
+
+    weights = [(name, cs.site_words(W)) for name, W in _weights()]
+    W = torch.from_numpy(quickstart.operands()[1]).cuda()
+    quick = to_bits(W.to(torch.bfloat16)).contiguous()
+    by_shape = {tuple(w.shape): (name, w) for name, w in weights}
+    logged = [(f"{by_shape[s][0]} {s}", by_shape[s][1])
+              for s in cs.K5_PLAN_SHAPES] + [("quickstart", quick)]
+    return weights, logged
+
+
+def run_k5(args) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.transitions import kernel as k5
+    from repro_torch.kernels.transitions.ref import transitions_ref
+
+    _build.build_all(("transitions",))
+    fn = build_libs(args.old, ("transitions",))["transitions"] \
+        .tr_count_transitions
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    weights, logged = k5_streams()
+    for name, w in weights + logged:
+        got, old = k5.transitions_cuda(w), old_transitions(fn, w)
+        want = transitions_ref(w.to(torch.int32))
+        if not (torch.equal(got, want) and torch.equal(old, want)):
+            raise AssertionError(f"K5 {name}: new, old and plain differ")
+    say(f"new == old == plain, bitwise: K5 on {len(weights)} weight "
+        f"streams and {len(logged)} logged shapes")
+    fns = {"new": lambda w: k5.transitions_cuda(w),
+           "old": lambda w: old_transitions(fn, w)}
+    big = max(weights, key=lambda s: s[1].numel())[1]
+    for turn in ("old", "new", "new", "old"):
+        f = fns[turn]
+        ws = [lambda w=w: f(w) for _, w in weights]
+        say(f"{turn} K5 {len(ws)} weight streams: device "
+            f"{len(ws) * cs.device_ms(ws):.4f} ms; largest "
+            f"{tuple(big.shape)} by events "
+            f"{cs.time_ms(lambda: f(big), 20):.5f} ms, by the profiler "
+            f"{cs.device_ms([lambda: f(big)] * 5):.5f} ms")
+        for label, w in logged:
+            plan = k5.transitions_plan(*w.shape, w.element_size())
+            say(f"{turn} K5 {label} {tuple(w.shape)} {w.dtype}: device "
+                f"{cs.device_ms([lambda w=w: f(w)] * 5):.5f} ms (plan "
+                f"width {plan.tx}, cluster {plan.cluster}, cycles "
+                f"{plan.cycles})")
+    if args.sweep:
+        seen = {}
+        for name, w in weights + logged:
+            seen.setdefault((tuple(w.shape), w.dtype), (name, w))
+        for (shape, dt), (name, w) in seen.items():
+            T, L = shape
+            wb = w.element_size()
+            plan = k5.transitions_plan(T, L, wb)
+            row = []
+            for tx in k5._route(L, wb, True)[2]:
+                for cl in (1, 2, 4, 8, 16):
+                    p = k5.split_transitions(T, L, wb, cl, tx=tx)
+                    ms = cs.device_ms([lambda p=p: k5.transitions_cuda(
+                        w, plan=p)] * 3)
+                    row.append(f"{tx}/{cl}x{p.cycles}:{ms * 1e3:.2f}")
+            say(f"sweep K5 {name} T{T} L{L} {dt} plan {plan.tx}/"
+                f"{plan.cluster}x{plan.cycles}: " + " ".join(row)
+                + " (tile width / cluster x cycles: us)")
+
+
+def run_k1_k6(args) -> None:
     from repro_torch.core.bits import MANT_MASK
     from repro_torch.kernels import _build
     from repro_torch.kernels.bic_encode import kernel as k6
@@ -197,9 +308,8 @@ def main() -> int:
             f"{cs.time_ms(lambda: k6_fns[turn](big), 5):.5f} ms")
     if args.sweep:
         sweep(launches, weights, shapes)
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text("\n".join(_OUT) + "\n")
-    return 0
+
+
 
 
 def _weights():
