@@ -53,6 +53,23 @@ kernels' launch counts set to 0 just before it and read just after:
   profiler; its recorded sites, fed through a capture with every plain
   version, must give bitwise the same counters; then a two-geometry
   sweep over Qwen1.5-0.5B and ResNet50.
+* the design sweep, ``repro_torch.design.sweep``: ``collect_sites`` over
+  ResNet50 and MobileNetV1 at 224 px and the smoke Qwen1.5-0.5B,
+  Granite-3.0-2B and Phi-3.5-MoE (145 sites fitted to 96 x 96 x 96), then
+  ``build_sweep_report`` over the 320-point geometry x coding x precision
+  x approx grid. Kernel: K1, once an edge on each of the 24 (geometry,
+  precision) groups, bf16 and the embedded fp8/int8 words. Its rows must
+  be identical to the plain versions' and the JAX package's golden
+  floors must hold.
+* the dense and MoE archs of the LM zoo at their published widths:
+  Granite-3.0-2B whole (40 layers), Phi-3.5-MoE cut to 4 of 32 layers and
+  DeepSeek-67B to 2 of 95 (random bf16 weights from seed 0), each traced
+  over a forward (batch 2, seq 16) and 3 decode steps. Kernels: K1 for
+  every site's counters (held bitwise to the plain versions' at every
+  site), K2 in every decode projection and head (N = 49155 at Granite's
+  head), whose greedy picks must equal the plain run's (or part only at a
+  top-2 tie under ``LOGIT_TIE``); K2 timed at each new shape beside
+  ``torch.matmul``.
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
@@ -563,6 +580,344 @@ def phase_trace() -> dict:
         log(line)
     out["sweep"] = [{k: v for k, v in c.row().items()
                      if k != "design_savings"} for c in cells]
+    return out
+
+
+#: phase_sweep: the design sweep's workloads -- ResNet50 and MobileNetV1
+#: at 224 px (one image), the three smoke LMs -- fitted to the default
+#: 96 x 96 x 96 sample, priced over the full 320-point grid
+SWEEP_NETS = ("resnet50", "mobilenet")
+SWEEP_ARCHS = ("qwen1.5-0.5b", "granite-3-2b", "phi3.5-moe-42b-a6.6b")
+SWEEP_SITES = 54 + 28 + 19 + 19 + 25
+
+
+def phase_sweep() -> tuple[dict, object]:
+    """The design sweep (``repro_torch.design.sweep``): ``collect_sites``
+    over :data:`SWEEP_NETS` and :data:`SWEEP_ARCHS` on the card, then
+    ``build_sweep_report`` over the 320-point grid with K1 on every
+    ``(geometry, precision)`` group (24 groups, one launch an edge), cold
+    and warm, and once more with every plain version. The two reports'
+    rows must be identical (the same integer counters, so the same float
+    energies), and the JAX package's golden floors must hold
+    (``check_goldens`` returns no failure). Returns the phase's numbers
+    and the sites, which :func:`phase_sweep_busy` prices once more under
+    the profiler."""
+    from repro_torch.bench.design_sweep import best_vs_fixed, check_goldens
+    from repro_torch.design import sweep as dsw
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+
+    torch.cuda.synchronize()
+    k1.fused_counters_cuda.launches = 0
+    kz.gated_row_matmul_cuda.launches = 0
+    t0 = time.perf_counter()
+    sites = dsw.collect_sites(nets=SWEEP_NETS, archs=SWEEP_ARCHS, res=224)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    if len(sites.names) != SWEEP_SITES or sites.A.shape[1:] != (96, 96):
+        raise AssertionError(f"sweep: {len(sites.names)} sites of "
+                             f"{tuple(sites.A.shape)}, expected "
+                             f"{SWEEP_SITES} of 96 x 96")
+    designs = dsw.sweep_grid()
+    if len(designs) != 320:
+        raise AssertionError(f"sweep grid of {len(designs)} points")
+
+    def price(backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = dsw.build_sweep_report(sites, designs, backend=backend)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    rep, cold_s = price("auto")
+    launches = k1.fused_counters_cuda.launches
+    _, warm_s = price("auto")
+    ref, ref_s = price("ref")
+    if launches != 2 * 24 or kz.gated_row_matmul_cuda.launches:
+        raise AssertionError(f"sweep: {launches} K1 launches for 24 groups, "
+                             f"{kz.gated_row_matmul_cuda.launches} of K2")
+    if (rep.rows != ref.rows or rep.front != ref.front
+            or rep.beats_fixed != ref.beats_fixed):
+        bad = [r["name"] for r, p in zip(rep.rows, ref.rows) if r != p]
+        raise AssertionError(f"sweep rows with K1 differ from the plain "
+                             f"versions' at {bad[:8]}")
+    fails = check_goldens(rep)
+    if fails:
+        raise AssertionError(f"sweep goldens: {fails}")
+    front = [r["name"] for r in rep.front_rows()]
+    best = best_vs_fixed(rep)
+    log(f"sweep: {len(sites.names)} sites ({', '.join(SWEEP_NETS)} at 224 "
+        f"px, {', '.join(SWEEP_ARCHS)} smoke) fitted to 96x96x96 in "
+        f"{trace_s:.3f} s; 320 points priced cold {cold_s:.3f} s, warm "
+        f"{warm_s:.3f} s (plain versions {ref_s:.3f} s), {launches} K1 "
+        f"launches; rows identical to the plain versions'; goldens hold; "
+        f"front ({len(front)}) {front}; {len(rep.beats_fixed)} points beat "
+        f"the fixed design on streaming energy (best {best!r})")
+    return {"sites": len(sites.names), "points": len(designs),
+            "trace_wall_s": trace_s, "price_cold_s": cold_s,
+            "price_warm_s": warm_s, "price_plain_s": ref_s,
+            "launches": launches, "front": front,
+            "beats_fixed": len(rep.beats_fixed),
+            "best_streaming_vs_fixed": best}, sites
+
+
+def phase_sweep_busy(sweep: dict, sites) -> None:
+    """One more warm pricing of the 320-point grid under the profiler:
+    K1's device time over its 48 launches and the card's total, added to
+    ``sweep``. It runs after the timing phases, before the trace profiles:
+    a profile this large left CUPTI delivering no device events to the
+    small profiles after it (the K2 timings of :func:`zoo_k2`), and the
+    trace profiles are larger still."""
+    from repro_torch.design import sweep as dsw
+
+    designs = dsw.sweep_grid()
+    total, by = device_ms([lambda: dsw.build_sweep_report(
+        sites, designs, backend="auto")], by_kernel=True)
+    k1_ms = sum(v for k, v in by.items() if "counters_kernel" in k)
+    sweep |= {"k1_device_ms": k1_ms, "device_ms": total}
+    log(f"sweep pricing profiled: K1 device {k1_ms:.4f} ms over its 48 "
+        f"launches, the card busy {total:.4f} ms in all (profiler)")
+
+
+#: phase_zoo: the new archs at their published widths, each with the
+#: layers kept: Granite-3.0-2B whole, Phi-3.5-MoE cut to 4 of its 32 layers
+#: (42 B parameters do not fit one 80 GB card in bf16), DeepSeek-67B to 2
+#: of its 95
+ZOO = (("granite-3-2b", 40), ("phi3.5-moe-42b-a6.6b", 4),
+       ("deepseek-67b", 2))
+ZOO_DECODE_STEPS = 3
+
+
+def zoo_sites(acfg) -> tuple[int, int]:
+    """(traced sites, K2 launches a decode step) of a token LM: attention
+    has 6 sites (3 projections, 2 einsums, wo), an MLP 3, an MoE 6 (the
+    router, 5 einsums); K2 takes the 4 projections, the MLP's 3 and the
+    head."""
+    sites, k2 = 1, 1
+    for spec in acfg.block_specs:
+        moe = spec.endswith("+moe")
+        sites += 6 + (6 if moe else 3)
+        k2 += 4 + (0 if moe else 3)
+    return sites, k2
+
+
+def zoo_shapes(acfg) -> dict:
+    """The distinct ``(K, N)`` of a decode step's K2 launches."""
+    d, q, kv = acfg.d_model, acfg.n_heads * acfg.hd, acfg.n_kv_heads * acfg.hd
+    shapes = {"wq": (d, q), "wk wv": (d, kv), "wo": (q, d)}
+    if any(s.endswith("+mlp") for s in acfg.block_specs):
+        shapes |= {"ffn up gate": (d, acfg.d_ff), "ffn down": (acfg.d_ff, d)}
+    shapes["lm head"] = (d, acfg.vocab)
+    out = {}
+    for name, kn in shapes.items():    # wq and wo share a shape when q = d
+        out.setdefault(kn, []).append(name)
+    return {" ".join(v): k for k, v in out.items()}
+
+
+def phase_zoo() -> dict:
+    """The dense and MoE archs the port added, at their published widths
+    (:data:`ZOO`, random float32 masters from seed 0 run in bf16), through
+    ``trace_arch(..., smoke=False)``: the forward at batch 2, seq 16 and
+    3 decode steps after a prefill. Every recorded call is counted with
+    the kernels and with every plain version, and the two captures must
+    hold bitwise the same counters at every site; K1 launches twice a
+    call and K2 once a decode-step matmul (:func:`zoo_sites`). Then 3
+    greedy decode steps after a prefill with ``backend="auto"`` and
+    ``"ref"`` fed the same tokens: the picks must be equal (or part only
+    at a top-2 tie under ``LOGIT_TIE``). K2 at each decode shape
+    (:func:`zoo_shapes`; Granite's head is N = 49155, not a multiple of
+    8) against its plain version within ``PRODUCT_TOL``, and timed beside
+    ``torch.matmul`` (:func:`zoo_k2`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.models import lm
+    from repro_torch.trace import sweep as sw
+    from repro_torch.trace.capture import TraceCapture
+
+    class Twin(TraceCapture):
+        """A capture that also records every call into a capture with
+        every plain version."""
+
+        def __init__(self, cfg, ref_cfg):
+            super().__init__(cfg)
+            self.ref = TraceCapture(ref_cfg)
+            self.calls = 0
+
+        def record(self, site):
+            self.calls += 1
+            super().record(site)
+            self.ref.record(site)
+
+    cfg = sw.make_capture_config()
+    ref_cfg = dataclasses.replace(cfg, monitor=dataclasses.replace(
+        cfg.monitor, backend="ref"))
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda)
+    out = {}
+    for arch, layers in ZOO:
+        full = get_config(arch)
+        acfg = full.with_(n_layers=layers)
+        cut = ("none" if layers == full.n_layers else
+               f"depth {layers} of {full.n_layers} layers")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.no_grad():
+            params = lm.init_model(acfg, gen)
+        n_params = sum(t.numel() for t in _leaves(params))
+        n_sites, k2_step = zoo_sites(acfg)
+        res = {"layers": layers, "of_layers": full.n_layers, "cut": cut,
+               "params": n_params, "sites": n_sites}
+        for mode in ("forward", "decode"):
+            steps = ZOO_DECODE_STEPS if mode == "decode" else 1
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            cap = Twin(cfg, ref_cfg)
+            t0 = time.perf_counter()
+            rep = sw.trace_arch(arch, mode, batch=2, seq=16,
+                                decode_steps=steps, smoke=False,
+                                capture=cap, params=params,
+                                arch_config=acfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            if (len(rep.sites) != n_sites
+                    or any(s.calls != steps for s in rep.sites)):
+                raise AssertionError(
+                    f"zoo {arch} {mode}: {len(rep.sites)} sites, calls "
+                    f"{sorted({s.calls for s in rep.sites})}; expected "
+                    f"{n_sites}, {steps}")
+            want_k2 = k2_step * steps if mode == "decode" else 0
+            if (launches["fused_counters_cuda"] != 2 * cap.calls
+                    or launches["gated_row_matmul_cuda"] != want_k2):
+                raise AssertionError(f"zoo {arch} {mode}: launches "
+                                     f"{launches} for {cap.calls} calls")
+            for name, acc in cap.sites.items():
+                r = cap.ref.sites[name]
+                if (r.counters != acc.counters or r.zf_sum != acc.zf_sum
+                        or r.calls != acc.calls):
+                    raise AssertionError(
+                        f"zoo {arch} {mode} {name}: counters with the "
+                        f"kernels differ from the plain versions'")
+            sm = rep.summary()
+            if not (0.0 < sm["streaming_saving"] < 1.0
+                    and 0.0 < sm["streaming_share"] < 1.0):
+                raise AssertionError(f"zoo {arch} {mode}: implausible {sm}")
+            res[mode] = {"calls": cap.calls, "wall_s": wall,
+                         "launches": launches,
+                         "streaming_saving": sm["streaming_saving"],
+                         "total_saving": sm["total_saving"],
+                         "mean_zero_fraction": sm["mean_zero_fraction"]}
+            log(f"zoo {arch} {mode} (full width, cut: {cut}; "
+                f"{n_params / 1e9:.2f} B parameters): {n_sites} sites, "
+                f"{cap.calls} calls, wall {wall:.3f} s with the plain "
+                f"capture beside, launches {json.dumps(launches)}; "
+                f"streaming saving {sm['streaming_saving']!r}, total "
+                f"{sm['total_saving']!r}; counters with the kernels "
+                f"bitwise equal to the plain versions' at every site")
+        res["greedy"] = zoo_greedy(acfg, params)
+        res["k2"] = zoo_k2(acfg)
+        out[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def zoo_greedy(acfg, params) -> dict:
+    """A slot prefill of batch 2, seq 16, then :data:`ZOO_DECODE_STEPS`
+    decode steps with the kernels (``"auto"``) and with the plain
+    versions (``"ref"``), both fed the plain run's picks: the kernels'
+    picks equal, or parted only where the plain run's top two logits lie
+    under ``LOGIT_TIE`` apart."""
+    from repro_torch.models import lm
+    from repro_torch.trace import sweep as sw
+
+    seq = 16
+    with torch.no_grad():
+        weights = lm.compute_weights(params, acfg)
+        tokens = sw.model_inputs(acfg, 2, seq, 0, "cuda")["tokens"]
+        prefill = lm.make_slot_prefill_step(acfg, seq + ZOO_DECODE_STEPS)
+        logits, states = prefill(weights, tokens, seq)
+        runs = {b: ([(k.clone(), v.clone()) for k, v in states],
+                    lm.make_decode_step(acfg, b)) for b in ("auto", "ref")}
+        tok = logits.argmax(-1, keepdim=True)
+        picks, ties, err = {"auto": [], "ref": []}, [], 0.0
+        for t in range(ZOO_DECODE_STEPS):
+            pos = torch.full((2, 1), seq + t, device="cuda")
+            out = {b: step(weights, st, tok, pos)
+                   for b, (st, step) in runs.items()}
+            err = max(err, float((out["auto"] - out["ref"]).abs().max()))
+            for b in out:
+                picks[b].append(out[b].argmax(-1).tolist())
+            top2 = out["ref"].topk(2, dim=-1).values
+            for i, (a, r) in enumerate(zip(picks["auto"][-1],
+                                           picks["ref"][-1])):
+                if a != r:
+                    margin = float(top2[i, 0] - top2[i, 1])
+                    if not margin < LOGIT_TIE:
+                        raise AssertionError(
+                            f"zoo {acfg.name}: step {t} row {i} picks {a} "
+                            f"with the kernels, {r} plain (margin "
+                            f"{margin!r})")
+                    ties.append(margin)
+            tok = out["ref"].argmax(-1, keepdim=True)
+        del weights, runs
+    log(f"zoo {acfg.name} greedy: {ZOO_DECODE_STEPS} decode steps, picks "
+        f"with the kernels {picks['auto']}, plain {picks['ref']} "
+        f"({len(ties)} parted at a tie, the plain run's top-2 margins "
+        f"{ties}); max |logit auto - ref| {err!r}")
+    return {"picks_auto": picks["auto"], "picks_ref": picks["ref"],
+            "ties": ties, "max_logit_diff": err}
+
+
+def zoo_k2(acfg) -> dict:
+    """K2 at each decode shape of the arch (2 rows, bf16): held against
+    its plain version within ``PRODUCT_TOL`` on operands with a gated
+    row, then timed on live rows beside its plain version and
+    ``torch.matmul``, with its bound. By CUDA events over 20 calls, not
+    the profiler: the script's profiles are many already, and one more
+    batch of them before the K1 shape timings left CUPTI delivering no
+    device events there in one run."""
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.kernels.zvg_matmul import ref as zref
+
+    M = 2
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for name, (K, N) in zoo_shapes(acfg).items():
+        x, w = decode_operands(M, K, N, torch.bfloat16, gen)
+        err = check_product(kz.gated_row_matmul_cuda(x, w),
+                            zref.gated_row_matmul_ref(x, w), x, w,
+                            f"K2 {acfg.name} {name} {M}x{K}x{N}")
+        x = torch.randn(M, K, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        t = {"ms": time_ms(lambda: kz.gated_row_matmul_cuda(x, w), 20),
+             "plain_ms": time_ms(lambda: zref.gated_row_matmul_ref(x, w),
+                                 20),
+             "library_ms": time_ms(lambda: torch.matmul(x, w), 20),
+             "bound_ms": max(2 * (M * K + K * N + M * N) / HBM_BYTES_PER_S,
+                             2 * M * K * N / BF16_OPS_PER_S) * 1e3,
+             "max_abs_err": err}
+        out[f"{name} {M}x{K}x{N}"] = t
+        log(f"gated_row_matmul {acfg.name} {name} {M}x{K}x{N}: within "
+            f"tolerance of the plain version (max |kernel - plain| "
+            f"{err!r}); ms by CUDA events: kernel {t['ms']:.4f}, plain "
+            f"{t['plain_ms']:.4f}, torch.matmul {t['library_ms']:.4f}, "
+            f"bound {t['bound_ms']:.5f}")
+        del x, w
     return out
 
 
@@ -2255,6 +2610,8 @@ def main() -> int:
     err6 = max(err6, e6, site_pass["err6"])
     site_launches = site_pass["launches"]
     traces = phase_trace()
+    sweep, sweep_sites = phase_sweep()
+    zoo = phase_zoo()
 
     breakdown = phase_breakdown("resnet50", designs)
     k1 = phase_timing(sites, msites)
@@ -2271,6 +2628,7 @@ def main() -> int:
     k4 = phase_paged_timing(cfg, paged["engine"], paged_requests(cfg.vocab))
     stream = phase_stream_timing(site_pass)
     k5, k6, k7 = stream["k5"], stream["k6"], stream["k7"]
+    phase_sweep_busy(sweep, sweep_sites)
     phase_trace_busy(traces)
     n_sites = len(site_pass["sites"])
 
@@ -2309,6 +2667,11 @@ def main() -> int:
         "launches_trace": {k: v["launches"]["fused_counters_cuda"]
                            for k, v in traces.items() if k != "sweep"},
         "traces": traces,
+        "launches_design_sweep": sweep["launches"],
+        "design_sweep": sweep,
+        "launches_zoo": {a: {m: z[m]["launches"]["fused_counters_cuda"]
+                             for m in ("forward", "decode")}
+                         for a, z in zoo.items()},
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",
@@ -2319,6 +2682,10 @@ def main() -> int:
             "gated_row_matmul_cuda"],
         "launches_trace_decode": traces["qwen1.5-0.5b decode"]["launches"][
             "gated_row_matmul_cuda"],
+        "launches_zoo_decode": {
+            a: z["decode"]["launches"]["gated_row_matmul_cuda"]
+            for a, z in zoo.items()},
+        "zoo": zoo,
         "max_abs_err": err2,
         "fault6": {"int8": fault6["k2_int8"], "long_k": fault6["k2_long_k"]},
         "ms": k2["ms"],

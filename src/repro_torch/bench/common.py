@@ -1,0 +1,61 @@
+"""Shared helpers of the port's benchmarks.
+
+Every benchmark prints ``name,us_per_call,derived`` CSV rows plus a
+human-readable block, and runs on the card unless ``--device cpu``.
+"""
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+
+def timed(fn, *args, warmup: int = 1, iters: int = 3):
+    """``(fn(*args), microseconds per call)``: ``warmup`` calls, then the
+    mean of ``iters`` on the host clock. Work on the card is synchronized
+    before each clock read."""
+    for _ in range(warmup):
+        fn(*args)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _sync()
+    dt = (time.perf_counter() - t0) / iters
+    return out, dt * 1e6
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def row(name: str, us: float, derived: str):
+    print(f"{name},{us:.1f},{derived}")
+
+
+def emit_artifact(path: str, cells: dict, **meta) -> None:
+    """Write a benchmark's structured-JSON artifact: metadata keys first,
+    every measured cell under ``"cells"``."""
+    with open(path, "w") as f:
+        json.dump({**meta, "cells": cells}, f, indent=1, default=float)
+    print(f"# wrote {path}")
+
+
+def benchmark_cli(main, quick_help: str = "smaller workload (CI smoke)",
+                  argv=None) -> None:
+    """The standard entry point: ``--quick``, ``--emit-json`` and
+    ``--device``, the CSV header, then ``main(quick=..., emit_json=...,
+    device=...)``."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--quick", action="store_true", help=quick_help)
+    ap.add_argument("--emit-json", default=None, metavar="PATH",
+                    help="also write every cell as structured JSON")
+    ap.add_argument("--device", default="cuda",
+                    help="device to run on (cuda by default; cpu runs "
+                         "the plain versions)")
+    args = ap.parse_args(argv)
+    print("name,us_per_call,derived")
+    main(quick=args.quick, emit_json=args.emit_json, device=args.device)

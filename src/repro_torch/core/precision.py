@@ -89,7 +89,12 @@ def _int8_bits(x: torch.Tensor, batch_dims: int) -> torch.Tensor:
     f = x.to(torch.float32)
     absmax = torch.abs(f).amax(dim=tuple(range(batch_dims, f.dim())),
                                keepdim=True)
-    scale = torch.where(absmax > 0.0, absmax / 127.0, 1.0)
+    # a tensor divisor: PyTorch multiplies a CUDA tensor by the reciprocal
+    # of a Python scalar divisor, one ulp away from the quotient at times,
+    # which moves words at rounding edges away from the CPU's and the
+    # JAX package's
+    scale = torch.where(absmax > 0.0, absmax / absmax.new_tensor(127.0),
+                        1.0)
     q = torch.clamp(torch.round(f / scale), -127.0, 127.0).to(torch.int8)
     return q.view(torch.uint8).to(torch.int32)
 

@@ -1,18 +1,20 @@
 """Architecture configuration schema (the port's copy of the JAX
 package's ``ArchConfig``, field for field).
 
-Block specs are ``"<mixer>[+<ffn>]"`` strings. This slice of the port
-runs dense token LMs only: every block ``"attn+mlp"``, RMS norm and
-RoPE, with no MoE, MLA, RG-LRU or xLSTM sub-config. Any other
-architecture raises at construction (the rest of the LM zoo is ROADMAP
-queue 1 step 3).
+Block specs are ``"<mixer>[+<ffn>]"`` strings. The port runs token LMs
+of attention blocks with RMS norm and RoPE: dense (``"attn+mlp"``) and
+MoE (``"attn+moe"``, with a :class:`MoEConfig`), with no MLA, RG-LRU or
+xLSTM sub-config. Any other architecture raises at construction (the
+rest of the LM zoo is ROADMAP queue 1 step 3).
 """
 from __future__ import annotations
 
 import dataclasses
 
-#: the block specs, norms and position encodings this slice runs
-SUPPORTED_BLOCKS = ("attn+mlp",)
+from .moe import MoEConfig
+
+#: the block specs this port runs
+SUPPORTED_BLOCKS = ("attn+mlp", "attn+moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +46,7 @@ class ArchConfig:
     resid_mult: float = 1.0
     attn_scale: float = 0.0        # 0 => 1/sqrt(head_dim)
     window: int = 0                # sliding window for "local" blocks
-    moe: object | None = None
+    moe: MoEConfig | None = None
     mla: object | None = None
     rglru: object | None = None
     xlstm: object | None = None
@@ -83,16 +85,20 @@ class ArchConfig:
                 f"{len(self.pattern)}")
         other = sorted({s for s in (*self.pattern, *self.head, *self.tail)
                         if s not in SUPPORTED_BLOCKS})
-        subs = [f for f in ("moe", "mla", "rglru", "xlstm")
+        subs = [f for f in ("mla", "rglru", "xlstm")
                 if getattr(self, f) is not None]
         if (other or subs or self.norm != "rms" or self.pos != "rope"
                 or self.inputs != "tokens"):
             raise NotImplementedError(
-                f"{self.name}: the port runs token LMs of attn+mlp blocks "
-                f"with RMS norm and RoPE only (blocks {other or 'ok'}, "
+                f"{self.name}: the port runs token LMs of attn+mlp and "
+                f"attn+moe blocks with RMS norm and RoPE only (blocks "
+                f"{other or 'ok'}, "
                 f"sub-configs {subs or 'none'}, norm {self.norm!r}, pos "
                 f"{self.pos!r}, inputs {self.inputs!r}); the rest of the "
                 f"LM zoo is ROADMAP queue 1 step 3")
+        if self.moe is None and any(s.endswith("+moe")
+                                    for s in self.block_specs):
+            raise ValueError(f"{self.name}: moe blocks need a MoEConfig")
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -7,6 +7,9 @@ leading group axis}, "tail": [block]}, "final_norm", ["unembed"]}``. The
 port's tree is :func:`repro_torch.models.lm.init_model`'s: the scanned
 groups unstacked into one ``"layers"`` list in execution order (head,
 then each group's blocks, then tail), float32 masters kept as they are.
+An MoE block's ``ffn`` (``router [D, E]``, ``w_gate``/``w_up`` ``[E, D,
+F]``, ``w_down [E, F, D]`` and an optional ``shared`` MLP) carries
+across leaf by leaf, like every other sub-tree.
 """
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ match the JAX package are carried across by :mod:`.convert`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -67,8 +69,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------- scalars
+@functools.lru_cache(maxsize=None)
+def weak(v: float, dtype: torch.dtype) -> float:
+    """A Python scalar as the JAX package's weakly typed scalars enter an
+    op on a ``dtype`` array: rounded to ``dtype`` first (bf16 0.22 is
+    0.2197265625). PyTorch would use it unrounded in the op's float32
+    compute type. Rounded on the host: no copy to the card."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
 # -------------------------------------------------------------------- MLP
-_ACTS = {"silu": F.silu, "gelu": lambda h: F.gelu(h, approximate="tanh"),
+def silu(h: torch.Tensor) -> torch.Tensor:
+    """``h * sigmoid(h)`` with the sigmoid as ``1 / (1 + exp(-h))``, each
+    step rounded to ``h``'s dtype: the JAX package's SiLU as XLA runs it
+    on the CPU (its logistic is expanded into those ops in the operand's
+    type), bit for bit in bf16; ``F.silu`` rounds once, and parts from it
+    in about 40% of bf16 words. The ``exp`` runs on float32: PyTorch's CPU
+    bf16 ``exp`` has left later float32 ``exp`` calls of the process
+    1.5e-4 off (at random). The quotient is a true division:
+    ``torch.reciprocal`` (and ``1 / t``) may be approximate there."""
+    e = torch.exp(-h.float()).to(h.dtype)
+    return h * torch.div(e.new_ones(()), e + 1)
+
+
+_ACTS = {"silu": silu, "gelu": lambda h: F.gelu(h, approximate="tanh"),
          "relu": F.relu}
 
 

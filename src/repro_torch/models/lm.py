@@ -31,7 +31,8 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
     ``{"embed": [V, D], "layers": [block, ...], "final_norm": {"scale"}}``
     plus ``"unembed": [D, V]`` when the embeddings are not tied."""
     p = {"embed": L.normal_init((cfg.vocab, cfg.d_model), 1.0, gen),
-         "layers": [T.make_block(cfg, gen) for _ in cfg.block_specs],
+         "layers": [T.make_block(cfg, spec, gen)
+                    for spec in cfg.block_specs],
          "final_norm": {"scale": L.scale_param(cfg.d_model, gen)}}
     if not cfg.tie_embeddings:
         p["unembed"] = L.dense_param(cfg.d_model, cfg.vocab, gen)
@@ -40,13 +41,19 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 def compute_weights(params: dict, cfg: ArchConfig) -> dict:
     """The weights the steps run on: matmul weights, biases and the
-    embedding in the compute dtype (norm scales stay float32, as the JAX
-    package reads them), plus ``"head"``, the output projection ``[D,
-    V]`` made contiguous (the tied ``embed.T`` or ``unembed``)."""
+    embedding in the compute dtype (norm scales and an MoE's router stay
+    float32, as the JAX package reads them), plus ``"head"``, the output
+    projection ``[D, V]`` made contiguous (the tied ``embed.T`` or
+    ``unembed``)."""
     dt = compute_dtype(cfg)
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v if k == "router" else v.to(dt))
+                for k, v in tree.items()}
+
     layers = [{"norm1": p["norm1"], "norm2": p["norm2"],
-               "mixer": {k: v.to(dt) for k, v in p["mixer"].items()},
-               "ffn": {k: v.to(dt) for k, v in p["ffn"].items()}}
+               "mixer": cast(p["mixer"]), "ffn": cast(p["ffn"])}
               for p in params["layers"]]
     embed = params["embed"].to(dt)
     head = embed.T if cfg.tie_embeddings else params["unembed"].to(dt)
@@ -63,7 +70,7 @@ def embed_inputs(embed: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor,
     x = embed[tokens]
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    return x * cfg.emb_mult, positions
+    return x * L.weak(cfg.emb_mult, x.dtype), positions
 
 
 def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
@@ -78,16 +85,19 @@ def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
     return out
 
 
-def _forward(weights: dict, cfg: ArchConfig, tokens, positions=None, *,
-             states=None, prefill=False, cache_len=0, pages=None,
-             backend=None):
+def apply_model(weights: dict, cfg: ArchConfig, tokens, positions=None, *,
+                states=None, prefill=False, cache_len=0, pages=None,
+                backend=None):
+    """Forward to the final hidden states: ``(h [B, S, D], states,
+    aux)``, ``aux`` the MoE layers' load-balancing losses summed (a
+    float32 zero for a dense model), as the JAX package's
+    ``apply_model`` returns them. Serving and tracing ignore ``aux``."""
     with interpret.scope("embed"):
         x, positions = embed_inputs(weights["embed"], cfg, tokens, positions)
-    x, states = T.apply_stack(weights["layers"], x, cfg, positions=positions,
-                              states=states, prefill=prefill,
-                              cache_len=cache_len, pages=pages,
-                              backend=backend)
-    return L.rms_norm(x, weights["final_norm"]["scale"]), states
+    x, states, aux = T.apply_stack(
+        weights["layers"], x, cfg, positions=positions, states=states,
+        prefill=prefill, cache_len=cache_len, pages=pages, backend=backend)
+    return L.rms_norm(x, weights["final_norm"]["scale"]), states, aux
 
 
 # ----------------------------------------------------------- step builders
@@ -110,8 +120,8 @@ def make_slot_prefill_step(cfg: ArchConfig, cache_len: int):
     reads positions ``> p``, and every padded cache row is overwritten by
     a decode write before a later step's mask admits it."""
     def slot_prefill_step(weights, tokens, length: int):
-        h, states = _forward(weights, cfg, tokens, prefill=True,
-                             cache_len=cache_len)
+        h, states, _ = apply_model(weights, cfg, tokens, prefill=True,
+                                   cache_len=cache_len)
         return logits_fn(weights, cfg, h[:, max(length - 1, 0)]), states
 
     return slot_prefill_step
@@ -130,8 +140,8 @@ def make_chunk_prefill_step(cfg: ArchConfig):
     the plain path, as prefill's do."""
     def chunk_prefill_step(weights, states, tokens, positions, pages,
                            length: int, start: int):
-        h, _ = _forward(weights, cfg, tokens, positions, states=states,
-                        pages=pages)
+        h, _, _ = apply_model(weights, cfg, tokens, positions,
+                              states=states, pages=pages)
         idx = min(max(length - 1 - start, 0), h.shape[1] - 1)
         return logits_fn(weights, cfg, h[:, idx])
 
@@ -157,8 +167,8 @@ def make_decode_step(cfg: ArchConfig, backend: str | None = "auto"):
     mm.check_backend(backend)
 
     def decode_step(weights, states, tokens, positions, pages=None):
-        h, _ = _forward(weights, cfg, tokens, positions, states=states,
-                        pages=pages, backend=backend)
+        h, _, _ = apply_model(weights, cfg, tokens, positions,
+                              states=states, pages=pages, backend=backend)
         return logits_fn(weights, cfg, h[:, -1], backend)
 
     return decode_step

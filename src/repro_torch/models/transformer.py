@@ -1,7 +1,9 @@
 """Block composition and the layer stack.
 
 A block ``"attn+mlp"`` is pre-norm attention then a pre-norm MLP, each
-added to the residual stream. The stack is a loop over the layers in
+added to the residual stream; ``"attn+moe"`` has a mixture of experts
+(:mod:`.moe`) in the MLP's place, whose load-balancing loss the stack
+sums over the layers. The stack is a loop over the layers in
 execution order (``cfg.block_specs``); the JAX package's scanned groups
 are unstacked by :mod:`.convert`, and the port has no remat.
 
@@ -41,6 +43,7 @@ from repro_torch.trace import interpret
 from . import attention as A
 from . import layers as L
 from . import matmul as mm
+from . import moe as M
 from .config import ArchConfig
 
 
@@ -63,12 +66,14 @@ def make_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return p
 
 
-def make_block(cfg: ArchConfig, gen: torch.Generator) -> dict:
+def make_block(cfg: ArchConfig, spec: str, gen: torch.Generator) -> dict:
+    ffn = parse_spec(spec)[1]
     return {"norm1": {"scale": L.scale_param(cfg.d_model, gen)},
             "mixer": make_attention(cfg, gen),
             "norm2": {"scale": L.scale_param(cfg.d_model, gen)},
-            "ffn": L.make_mlp(cfg.d_model, cfg.d_ff, gen,
-                              gated=cfg.mlp_gated)}
+            "ffn": (M.make_moe(cfg.d_model, cfg.moe, gen) if ffn == "moe"
+                    else L.make_mlp(cfg.d_model, cfg.d_ff, gen,
+                                    gated=cfg.mlp_gated))}
 
 
 # ------------------------------------------------------------------ paging
@@ -160,18 +165,25 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
                 positions: torch.Tensor, state=None, prefill: bool = False,
                 cache_len: int = 0, pages: torch.Tensor | None = None,
                 backend: str | None = None):
+    """One block: ``(x, state, aux)``, ``aux`` the MoE's load-balancing
+    loss (a float32 zero for a dense block)."""
     mixer, ffn = parse_spec(spec)
+    aux = torch.zeros((), device=x.device)
     h = L.rms_norm(x, p["norm1"]["scale"])
     with interpret.scope(mixer):
         out, new_state = apply_attention(
             p["mixer"], h, cfg, positions=positions, state=state,
             prefill=prefill, cache_len=cache_len, pages=pages,
             backend=backend)
-    x = x + cfg.resid_mult * out
+    x = x + L.weak(cfg.resid_mult, out.dtype) * out
     h = L.rms_norm(x, p["norm2"]["scale"])
     with interpret.scope(ffn):
-        x = x + cfg.resid_mult * L.apply_mlp(p["ffn"], h, cfg.act, backend)
-    return x, new_state
+        if ffn == "moe":
+            y, aux = M.apply_moe(p["ffn"], h, cfg.moe, cfg.act, backend)
+        else:
+            y = L.apply_mlp(p["ffn"], h, cfg.act, backend)
+    x = x + L.weak(cfg.resid_mult, y.dtype) * y
+    return x, new_state, aux
 
 
 # -------------------------------------------------------------------- stack
@@ -180,19 +192,23 @@ def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
                 prefill: bool = False, cache_len: int = 0,
                 pages: torch.Tensor | None = None,
                 backend: str | None = None):
-    """Run every layer. Returns ``(x, states)``: the per-layer states for
-    decode and paged steps (updated in place) and prefill, else
-    ``None``."""
+    """Run every layer. Returns ``(x, states, aux)``: the per-layer states
+    for decode and paged steps (updated in place) and prefill, else
+    ``None``; and the blocks' load-balancing losses summed in layer
+    order, as the JAX package's stack sums them."""
     new_states = [] if (states is not None or prefill) else None
+    aux_total = torch.zeros((), device=x.device)
     for i, (p, spec) in enumerate(zip(layers, cfg.block_specs)):
         with _layer_scope(cfg, i):
-            x, st = apply_block(p, x, cfg, spec, positions=positions,
-                                state=None if states is None else states[i],
-                                prefill=prefill, cache_len=cache_len,
-                                pages=pages, backend=backend)
+            x, st, aux = apply_block(
+                p, x, cfg, spec, positions=positions,
+                state=None if states is None else states[i],
+                prefill=prefill, cache_len=cache_len, pages=pages,
+                backend=backend)
+        aux_total = aux_total + aux
         if new_states is not None:
             new_states.append(st)
-    return x, new_states
+    return x, new_states, aux_total
 
 
 def _layer_scope(cfg: ArchConfig, i: int):

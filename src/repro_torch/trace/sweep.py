@@ -108,11 +108,13 @@ def trace_arch(arch: str, mode: str = "forward", *, batch: int = 2,
                cfg: CaptureConfig | None = None, seed: int = 0,
                device="cuda", backend: str | None = None,
                params: dict | None = None,
-               capture: TraceCapture | None = None) -> TraceReport:
+               capture: TraceCapture | None = None,
+               arch_config=None) -> TraceReport:
     """Trace one registry architecture end to end, with random float32
     masters from ``seed`` (or ``params``, e.g. converted from the JAX
     package) run in the config's compute dtype, into ``capture`` (a new
-    one of ``cfg`` by default).
+    one of ``cfg`` by default). ``arch_config`` runs in place of the
+    registry's config (e.g. its published widths cut in depth).
 
     mode:
       forward -- the full-sequence forward and the output head, matmuls
@@ -131,7 +133,7 @@ def trace_arch(arch: str, mode: str = "forward", *, batch: int = 2,
     device = check_device(device, "trace_arch")
     cap = capture or TraceCapture(cfg or make_capture_config(backend=backend))
     cfg = cap.cfg
-    acfg = get_config(arch, smoke=smoke)
+    acfg = arch_config or get_config(arch, smoke=smoke)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = lm.init_model(acfg, gen)
@@ -144,7 +146,8 @@ def trace_arch(arch: str, mode: str = "forward", *, batch: int = 2,
             # the output head too: the D x V projection is usually the
             # largest matmul, and decode mode traces it as well
             def fn(w, toks):
-                return lm.logits_fn(w, acfg, lm._forward(w, acfg, toks)[0])
+                h = lm.apply_model(w, acfg, toks)[0]
+                return lm.logits_fn(w, acfg, h)
             _, sk = trace_fn(fn, weights, tokens, emit=cap,
                              include_conv=cfg.include_conv, name=arch)
             skipped.extend(sk)

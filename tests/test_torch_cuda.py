@@ -256,6 +256,81 @@ def test_gated_row_matmul_kernel_matches_plain(cuda, M, K, N, dtype):
     _assert_product(got, plain, x, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M,K,N", [(2, 2048, 49155), (4, 2048, 49155),
+                                   (2, 8192, 22016), (2, 22016, 8192),
+                                   (2, 4096, 32064)])
+def test_gated_row_matmul_at_the_zoo_shapes(cuda, M, K, N, dtype):
+    """The decode shapes the new archs bring: Granite-3.0-2B's tied head
+    (N = 49155, not a multiple of 8: the scalar column route),
+    DeepSeek-67B's MLP (K = 8192, N = 22016 and back) and Phi-3.5-MoE's
+    head."""
+    x, w = _decode_operands(M, K, N, dtype, seed=M + K + N)
+    before = kz.gated_row_matmul_cuda.launches
+    got = kz.gated_row_matmul_cuda(x, w)
+    assert kz.gated_row_matmul_cuda.launches == before + 1
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    _assert_product(got, plain, x, w)
+
+
+def _sweep_sites(B: int, seed: int):
+    """``[B, 96, 96]`` sites as the sweep fits them: bfloat16, ReLU'd
+    activations with extra zeros, small weights."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.relu(torch.randn(B, 96, 96, generator=g))
+    A[torch.rand(A.shape, generator=g) < 0.3] = 0.0
+    W = torch.randn(B, 96, 96, generator=g) * 0.05
+    return A.to(torch.bfloat16), W.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("precision", ["fp8e4m3", "int8", "bf16"])
+@pytest.mark.parametrize("geom", [(16, 16), (8, 32), (64, 4)], ids=str)
+def test_sweep_group_counters_on_the_card_equal_plain(cuda, precision,
+                                                      geom):
+    """One ``(geometry, precision)`` group of the design sweep: the menu
+    its points need, counted by K1 (one launch an edge) on batched
+    ``[B, 96, 96]`` sites in the format's embedded words, bitwise equal to
+    the plain version on the CPU."""
+    from repro_torch.design import menu_args
+    from repro_torch.design.sweep import sweep_grid
+
+    A, W = _sweep_sites(12, seed=geom[0] + len(precision))
+    (key, kw), = menu_args(sweep_grid(geometries=(geom,),
+                                      precisions=(precision,))).items()
+    before = k1.fused_counters_cuda.launches
+    got = systolic.sa_design_report(A.to(cuda), W.to(cuda), key[0],
+                                    precision=precision, **kw)
+    assert k1.fused_counters_cuda.launches == before + 2
+    want = systolic.sa_design_report(A, W, key[0], precision=precision,
+                                     backend="ref", **kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_sweep_report_on_the_card_equals_plain(cuda):
+    """The full 320-point grid over 10 sites: the rows with K1 on every
+    group are those of the plain version, to the bit."""
+    from repro_torch.design.sweep import (SweepSites, build_sweep_report,
+                                          sweep_grid)
+
+    A, W = _sweep_sites(10, seed=9)
+    wts = torch.linspace(0.5, 5.0, 10)
+    names = [f"s{i}" for i in range(10)]
+    grid = sweep_grid()
+    before = k1.fused_counters_cuda.launches
+    got = build_sweep_report(SweepSites(A.to(cuda), W.to(cuda), wts, names,
+                                        (96, 96, 96)), grid, backend="auto")
+    assert k1.fused_counters_cuda.launches == before + 2 * 24
+    want = build_sweep_report(SweepSites(A.to(cuda), W.to(cuda), wts, names,
+                                         (96, 96, 96)), grid, backend="ref")
+    assert got.rows == want.rows
+    assert (got.front, got.beats_fixed) == (want.front, want.beats_fixed)
+
+
 @pytest.mark.parametrize("B,K,N,lanes_w,cols", [
     (4, 1024, 256, 16, 16), (3, 63, 129, 5, 32), (1, 1, 1, 16, 16)])
 def test_fused_matmul_counters_kernel_matches_plain(cuda, B, K, N, lanes_w,

@@ -62,13 +62,15 @@ def _close(got, want, tol, what):
 
 def test_config_registry_matches_the_jax_package():
     from repro.configs import ARCHS as JARCHS
+    assert set(ARCHS) == set(SMOKES) and ARCH in ARCHS
     for table, jtable in ((ARCHS, JARCHS), (SMOKES, JSMOKES)):
-        got = dataclasses.asdict(table[ARCH])
-        want = dataclasses.asdict(jtable[ARCH])
-        assert got == want
+        for name in table:
+            got = dataclasses.asdict(table[name])
+            want = dataclasses.asdict(jtable[name])
+            assert got == want, name
     assert get_config(ARCH, smoke=True).n_layers == 2
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("phi3.5-moe-42b-a6.6b")
+        get_config("recurrentgemma-9b")
 
 
 def test_blocks_other_than_attn_mlp_name_roadmap_step_8():
