@@ -61,15 +61,24 @@ kernels' launch counts set to 0 just before it and read just after:
   precision) groups, bf16 and the embedded fp8/int8 words. Its rows must
   be identical to the plain versions' and the JAX package's golden
   floors must hold.
-* the dense and MoE archs of the LM zoo at their published widths:
-  Granite-3.0-2B whole (40 layers), Phi-3.5-MoE cut to 4 of 32 layers and
-  DeepSeek-67B to 2 of 95 (random bf16 weights from seed 0), each traced
-  over a forward (batch 2, seq 16) and 3 decode steps. Kernels: K1 for
-  every site's counters (held bitwise to the plain versions' at every
-  site), K2 in every decode projection and head (N = 49155 at Granite's
-  head), whose greedy picks must equal the plain run's (or part only at a
-  top-2 tie under ``LOGIT_TIE``); K2 timed at each new shape beside
-  ``torch.matmul``.
+* the LM zoo at its published widths (random bf16 weights from seed 0):
+  Granite-3.0-2B whole (40 layers), Phi-3.5-MoE cut to 4 of 32 layers,
+  DeepSeek-67B to 2 of 95, MiniCPM3-4B to 24 of 62 (MLA with q-LoRA),
+  DeepSeek-V2-Lite to 4 of 27 (MLA, 64 experts), RecurrentGemma-9B to 14
+  of 38 (RG-LRU and local attention), xLSTM-1.3B to 16 of 48,
+  MusicGen-medium whole (48, codes), Qwen2-VL-72B to 2 of 80 (M-RoPE over
+  embeds), each
+  traced over a forward (batch 2, seq 16) and 3 decode steps. Kernels: K1
+  for every site's counters (held bitwise to the plain versions' at every
+  site), K2 in every decode matmul the JAX package runs through its
+  backend (site and launch counts as counted per mixer), whose greedy
+  picks must equal the plain run's (or part only at a top-2 tie); K2
+  timed at each new shape beside ``torch.matmul`` (up to Qwen2-VL's
+  8192 x 152064 head).
+* the slot engine with power accounting on MiniCPM3-4B whole and
+  RecurrentGemma-9B at 14 layers (prompts at their exact lengths), 4
+  requests through 2 slots with the kernels and with every plain version:
+  tokens and energies equal. Kernels: K1 (prefill accounting), K2, K3.
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
@@ -679,35 +688,93 @@ def phase_sweep_busy(sweep: dict, sites) -> None:
         f"launches, the card busy {total:.4f} ms in all (profiler)")
 
 
-#: phase_zoo: the new archs at their published widths, each with the
-#: layers kept: Granite-3.0-2B whole, Phi-3.5-MoE cut to 4 of its 32 layers
-#: (42 B parameters do not fit one 80 GB card in bf16), DeepSeek-67B to 2
-#: of its 95
+#: phase_zoo: the LM zoo at its published widths, each with the layers
+#: kept: Granite-3.0-2B whole, Phi-3.5-MoE cut to 4 of its 32 layers (42 B
+#: parameters do not fit one 80 GB card in bf16), DeepSeek-67B to 2 of its
+#: 95; MiniCPM3-4B to 24 of 62 (time: traced whole it took 53 s of the
+#: script's ~600 on an NVIDIA H100 80GB HBM3 at 700 W; :data:`ZOO_SERVING`
+#: serves it whole); DeepSeek-V2-Lite to 4 of 27 (the dense head layer and
+#: 3 MoE layers: 15.7 B parameters are ~94 GB as float32 masters plus
+#: bf16); RecurrentGemma-9B to 14 of 38 (4 groups and the 2-block tail;
+#: memory and time); xLSTM-1.3B to 16 of 48 (2 groups of 7 mLSTM and 1
+#: sLSTM; time: 40 s whole on that card); MusicGen-medium whole;
+#: Qwen2-VL-72B to 2 of 80 (72 B parameters do not fit one card)
 ZOO = (("granite-3-2b", 40), ("phi3.5-moe-42b-a6.6b", 4),
-       ("deepseek-67b", 2))
+       ("deepseek-67b", 2), ("minicpm3-4b", 24),
+       ("deepseek-v2-lite-16b", 4), ("recurrentgemma-9b", 14),
+       ("xlstm-1.3b", 16), ("musicgen-medium", 48), ("qwen2-vl-72b", 2))
 ZOO_DECODE_STEPS = 3
+ZOO_SEQ = 16
 
 
-def zoo_sites(acfg) -> tuple[int, int]:
-    """(traced sites, K2 launches a decode step) of a token LM: attention
-    has 6 sites (3 projections, 2 einsums, wo), an MLP 3, an MoE 6 (the
-    router, 5 einsums); K2 takes the 4 projections, the MLP's 3 and the
-    head."""
-    sites, k2 = 1, 1
+def zoo_sites(acfg, seq: int = ZOO_SEQ) -> tuple[int, int, int]:
+    """(forward sites at ``seq``, decode-step sites, K2 launches a decode
+    step) of an arch, counted per mixer and FFN from the model's code, not
+    read off the tracer. Sites: attention's 3 projections, 2 einsums a KV
+    block of ``attn_block_k`` (local attention's 2 over all its query
+    blocks; decode 2) and ``wo``; MLA's q path (``wq``'s einsum, or
+    ``w_dq`` and ``w_uq``'s einsum), ``w_dkv``, ``w_kr``, the forward's
+    two expansions and 2 einsums a KV block or the decode's five absorbed
+    einsums, and ``wo``; the RG-LRU block's 5 products (decode: and its
+    conv einsum); the mLSTM's 8 products and 5 einsums a chunk (decode:
+    the conv einsum and the 2 of one recurrent step); the sLSTM's 3
+    products and one einsum a step (decode: the conv einsum, 3 products,
+    one step's einsum); an MLP's 3 (2 ungated), an MoE's router and 5
+    einsums (and its shared MLP's 3); the head. K2 takes what the JAX
+    package runs through ``models.matmul``: attention's 4 projections,
+    MLA's ``w_dq``, ``w_dkv``, ``w_kr`` and ``wo``, the MLPs (the shared
+    one too) and a token head -- not the codes heads' einsum, not the
+    recurrent and xLSTM blocks' bare products."""
+    kv_blocks = -(-seq // acfg.attn_block_k)
+    fwd, dec, k2 = 1, 1, 0 if acfg.inputs == "codes" else 1
     for spec in acfg.block_specs:
-        moe = spec.endswith("+moe")
-        sites += 6 + (6 if moe else 3)
-        k2 += 4 + (0 if moe else 3)
-    return sites, k2
+        mixer, _, ffn = spec.partition("+")
+        if mixer == "attn":
+            f, d, k = 4 + 2 * kv_blocks, 6, 4
+        elif mixer == "local":
+            f, d, k = 6, 6, 4
+        elif mixer == "mla":
+            q = 2 if acfg.mla.q_lora_rank else 1
+            f, d, k = q + 5 + 2 * kv_blocks, q + 8, q + 2
+        elif mixer == "rglru":
+            f, d, k = 5, 6, 0
+        elif mixer == "mlstm":
+            f, d, k = 8 + 5 * -(-seq // acfg.xlstm.chunk), 11, 0
+        else:                                       # slstm
+            f, d, k = 3 + seq, 5, 0
+        if ffn == "mlp":
+            n = 3 if acfg.mlp_gated else 2
+            f, d, k = f + n, d + n, k + n
+        elif ffn == "moe":
+            n = 3 if acfg.moe.num_shared else 0
+            f, d, k = f + 6 + n, d + 6 + n, k + n
+        fwd, dec, k2 = fwd + f, dec + d, k2 + k
+    return fwd, dec, k2
 
 
 def zoo_shapes(acfg) -> dict:
     """The distinct ``(K, N)`` of a decode step's K2 launches."""
-    d, q, kv = acfg.d_model, acfg.n_heads * acfg.hd, acfg.n_kv_heads * acfg.hd
-    shapes = {"wq": (d, q), "wk wv": (d, kv), "wo": (q, d)}
-    if any(s.endswith("+mlp") for s in acfg.block_specs):
+    d = acfg.d_model
+    mixers = {s.partition("+")[0] for s in acfg.block_specs}
+    ffns = {s.partition("+")[2] for s in acfg.block_specs}
+    shapes = {}
+    if mixers & {"attn", "local"}:
+        q, kv = acfg.n_heads * acfg.hd, acfg.n_kv_heads * acfg.hd
+        shapes |= {"wq": (d, q), "wk wv": (d, kv), "wo": (q, d)}
+    if "mla" in mixers:
+        m = acfg.mla
+        if m.q_lora_rank:
+            shapes["w_dq"] = (d, m.q_lora_rank)
+        shapes |= {"w_dkv": (d, m.kv_lora_rank),
+                   "w_kr": (d, m.qk_rope_head_dim),
+                   "mla wo": (acfg.n_heads * m.v_head_dim, d)}
+    if "mlp" in ffns:
         shapes |= {"ffn up gate": (d, acfg.d_ff), "ffn down": (acfg.d_ff, d)}
-    shapes["lm head"] = (d, acfg.vocab)
+    if "moe" in ffns and acfg.moe.num_shared:
+        f = acfg.moe.shared_ff or acfg.moe.expert_ff * acfg.moe.num_shared
+        shapes |= {"shared up gate": (d, f), "shared down": (f, d)}
+    if acfg.inputs != "codes":
+        shapes["lm head"] = (d, acfg.vocab)
     out = {}
     for name, kn in shapes.items():    # wq and wo share a shape when q = d
         out.setdefault(kn, []).append(name)
@@ -715,19 +782,19 @@ def zoo_shapes(acfg) -> dict:
 
 
 def phase_zoo() -> dict:
-    """The dense and MoE archs the port added, at their published widths
-    (:data:`ZOO`, random float32 masters from seed 0 run in bf16), through
+    """The archs of the LM zoo at their published widths (:data:`ZOO`,
+    random float32 masters from seed 0 run in bf16), through
     ``trace_arch(..., smoke=False)``: the forward at batch 2, seq 16 and
     3 decode steps after a prefill. Every recorded call is counted with
     the kernels and with every plain version, and the two captures must
-    hold bitwise the same counters at every site; K1 launches twice a
-    call and K2 once a decode-step matmul (:func:`zoo_sites`). Then 3
-    greedy decode steps after a prefill with ``backend="auto"`` and
-    ``"ref"`` fed the same tokens: the picks must be equal (or part only
-    at a top-2 tie under ``LOGIT_TIE``). K2 at each decode shape
-    (:func:`zoo_shapes`; Granite's head is N = 49155, not a multiple of
-    8) against its plain version within ``PRODUCT_TOL``, and timed beside
-    ``torch.matmul`` (:func:`zoo_k2`)."""
+    hold bitwise the same counters at every site; the sites, K1's launches
+    (twice a call) and K2's (once a decode-step matmul it takes) must be
+    the counts :func:`zoo_sites` makes per mixer. Then 3 greedy decode
+    steps after a prefill with ``backend="auto"`` and ``"ref"`` fed the
+    same inputs: the picks (per codebook for MusicGen) must be equal, or
+    part only at a top-2 tie (:func:`tie_limit`). K2 at each decode shape
+    (:func:`zoo_shapes`) against its plain version within ``PRODUCT_TOL``,
+    and timed beside ``torch.matmul`` (:func:`zoo_k2`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -757,6 +824,7 @@ def phase_zoo() -> dict:
     counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda)
     out = {}
     for arch, layers in ZOO:
+        t_arch = time.perf_counter()
         full = get_config(arch)
         acfg = full.with_(n_layers=layers)
         cut = ("none" if layers == full.n_layers else
@@ -765,17 +833,18 @@ def phase_zoo() -> dict:
         with torch.no_grad():
             params = lm.init_model(acfg, gen)
         n_params = sum(t.numel() for t in _leaves(params))
-        n_sites, k2_step = zoo_sites(acfg)
+        n_fwd, n_dec, k2_step = zoo_sites(acfg)
         res = {"layers": layers, "of_layers": full.n_layers, "cut": cut,
-               "params": n_params, "sites": n_sites}
+               "params": n_params, "sites": n_fwd, "decode_sites": n_dec}
         for mode in ("forward", "decode"):
             steps = ZOO_DECODE_STEPS if mode == "decode" else 1
+            n_sites = n_dec if mode == "decode" else n_fwd
             torch.cuda.synchronize()
             for fn in counted:
                 fn.launches = 0
             cap = Twin(cfg, ref_cfg)
             t0 = time.perf_counter()
-            rep = sw.trace_arch(arch, mode, batch=2, seq=16,
+            rep = sw.trace_arch(arch, mode, batch=2, seq=ZOO_SEQ,
                                 decode_steps=steps, smoke=False,
                                 capture=cap, params=params,
                                 arch_config=acfg)
@@ -783,7 +852,8 @@ def phase_zoo() -> dict:
             wall = time.perf_counter() - t0
             launches = {fn.__name__: fn.launches for fn in counted}
             if (len(rep.sites) != n_sites
-                    or any(s.calls != steps for s in rep.sites)):
+                    or any(s.calls != steps for s in rep.sites)
+                    or cap.calls != n_sites * steps):
                 raise AssertionError(
                     f"zoo {arch} {mode}: {len(rep.sites)} sites, calls "
                     f"{sorted({s.calls for s in rep.sites})}; expected "
@@ -792,7 +862,8 @@ def phase_zoo() -> dict:
             if (launches["fused_counters_cuda"] != 2 * cap.calls
                     or launches["gated_row_matmul_cuda"] != want_k2):
                 raise AssertionError(f"zoo {arch} {mode}: launches "
-                                     f"{launches} for {cap.calls} calls")
+                                     f"{launches} for {cap.calls} calls, "
+                                     f"expected K2 {want_k2}")
             for name, acc in cap.sites.items():
                 r = cap.ref.sites[name]
                 if (r.counters != acc.counters or r.zf_sum != acc.zf_sum
@@ -804,8 +875,8 @@ def phase_zoo() -> dict:
             if not (0.0 < sm["streaming_saving"] < 1.0
                     and 0.0 < sm["streaming_share"] < 1.0):
                 raise AssertionError(f"zoo {arch} {mode}: implausible {sm}")
-            res[mode] = {"calls": cap.calls, "wall_s": wall,
-                         "launches": launches,
+            res[mode] = {"sites": n_sites, "calls": cap.calls,
+                         "wall_s": wall, "launches": launches,
                          "streaming_saving": sm["streaming_saving"],
                          "total_saving": sm["total_saving"],
                          "mean_zero_fraction": sm["mean_zero_fraction"]}
@@ -818,6 +889,7 @@ def phase_zoo() -> dict:
                 f"bitwise equal to the plain versions' at every site")
         res["greedy"] = zoo_greedy(acfg, params)
         res["k2"] = zoo_k2(acfg)
+        res["wall_s"] = time.perf_counter() - t_arch
         out[arch] = res
         del params
         gc.collect()
@@ -829,51 +901,72 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
     else:
         yield tree
 
 
+def _clone(tree):
+    """A copy of a decode state (tensors in nested lists and tuples)."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone()
+
+
+def tie_limit(top: float) -> float:
+    """The top-2 logit margin under which two runs' greedy picks may part:
+    ``LOGIT_TIE``, or two bf16 units in the last place at the top logit's
+    magnitude where that is more (a tied head's logits pass 64)."""
+    ulp = 2.0 ** (np.floor(np.log2(max(abs(top), 1e-30))) - 7)
+    return max(LOGIT_TIE, 2 * ulp)
+
+
 def zoo_greedy(acfg, params) -> dict:
-    """A slot prefill of batch 2, seq 16, then :data:`ZOO_DECODE_STEPS`
-    decode steps with the kernels (``"auto"``) and with the plain
-    versions (``"ref"``), both fed the plain run's picks: the kernels'
+    """A prefill of batch 2, seq 16, then :data:`ZOO_DECODE_STEPS` decode
+    steps with the kernels (``"auto"``) and with the plain versions
+    (``"ref"``), both fed the plain run's picks (per codebook for codes
+    archs; embeds archs the JAX package's decode embeds): the kernels'
     picks equal, or parted only where the plain run's top two logits lie
-    under ``LOGIT_TIE`` apart."""
+    under :func:`tie_limit` apart."""
     from repro_torch.models import lm
     from repro_torch.trace import sweep as sw
 
-    seq = 16
+    seq = ZOO_SEQ
     with torch.no_grad():
         weights = lm.compute_weights(params, acfg)
-        tokens = sw.model_inputs(acfg, 2, seq, 0, "cuda")["tokens"]
-        prefill = lm.make_slot_prefill_step(acfg, seq + ZOO_DECODE_STEPS)
-        logits, states = prefill(weights, tokens, seq)
-        runs = {b: ([(k.clone(), v.clone()) for k, v in states],
-                    lm.make_decode_step(acfg, b)) for b in ("auto", "ref")}
-        tok = logits.argmax(-1, keepdim=True)
+        inputs, positions = lm.model_input(
+            acfg, sw.model_inputs(acfg, 2, seq, 0, "cuda"))
+        prefill = lm.make_prefill_step(acfg, seq + ZOO_DECODE_STEPS)
+        logits, states = prefill(weights, inputs, positions)
+        runs = {b: (_clone(states), lm.make_decode_step(acfg, b))
+                for b in ("auto", "ref")}
+        pick = logits.argmax(-1)                      # [B] or [B, K]
         picks, ties, err = {"auto": [], "ref": []}, [], 0.0
         for t in range(ZOO_DECODE_STEPS):
             pos = torch.full((2, 1), seq + t, device="cuda")
-            out = {b: step(weights, st, tok, pos)
-                   for b, (st, step) in runs.items()}
+            if acfg.inputs == "embeds":
+                step = lm.model_input(acfg, sw.decode_inputs(
+                    acfg, 2, seq + t, 0, "cuda"))
+            else:
+                step = (pick[..., None], pos)
+            out = {b: fn(weights, st, *step) for b, (st, fn) in runs.items()}
             err = max(err, float((out["auto"] - out["ref"]).abs().max()))
             for b in out:
                 picks[b].append(out[b].argmax(-1).tolist())
-            top2 = out["ref"].topk(2, dim=-1).values
-            for i, (a, r) in enumerate(zip(picks["auto"][-1],
-                                           picks["ref"][-1])):
+            flat = {b: o.reshape(-1, o.shape[-1]) for b, o in out.items()}
+            top2 = flat["ref"].topk(2, dim=-1).values
+            got, want = (flat[b].argmax(-1).tolist() for b in ("auto", "ref"))
+            for i, (a, r) in enumerate(zip(got, want)):
                 if a != r:
                     margin = float(top2[i, 0] - top2[i, 1])
-                    if not margin < LOGIT_TIE:
+                    if not margin < tie_limit(float(top2[i, 0])):
                         raise AssertionError(
-                            f"zoo {acfg.name}: step {t} row {i} picks {a} "
-                            f"with the kernels, {r} plain (margin "
-                            f"{margin!r})")
+                            f"zoo {acfg.name}: step {t} pick {i}: {a} with "
+                            f"the kernels, {r} plain (margin {margin!r})")
                     ties.append(margin)
-            tok = out["ref"].argmax(-1, keepdim=True)
+            pick = out["ref"].argmax(-1)
         del weights, runs
     log(f"zoo {acfg.name} greedy: {ZOO_DECODE_STEPS} decode steps, picks "
         f"with the kernels {picks['auto']}, plain {picks['ref']} "
@@ -918,6 +1011,137 @@ def zoo_k2(acfg) -> dict:
             f"{t['plain_ms']:.4f}, torch.matmul {t['library_ms']:.4f}, "
             f"bound {t['bound_ms']:.5f}")
         del x, w
+    return out
+
+
+#: phase_zoo_serving: the slot engine with power accounting on the new
+#: token archs at their published widths -- MiniCPM3-4B whole (MLA, right-
+#: padded buckets) and RecurrentGemma-9B cut to 14 of 38 layers (RG-LRU
+#: and local attention, prefilled at the exact prompt length): 4 greedy
+#: requests (prompts of 16-64 tokens from ``default_rng(2)``) through 2
+#: slots, 16 new tokens each
+ZOO_SERVING = (("minicpm3-4b", 62), ("recurrentgemma-9b", 14))
+ZOO_SERVE_REQUESTS = 4
+ZOO_SERVE_SLOTS = 2
+ZOO_SERVE_NEW = 16
+ZOO_SERVE_CACHE = 128
+
+
+def zoo_launches(zoo_serving: dict, kernel: str) -> dict:
+    """One kernel's launches in each run of :func:`phase_zoo_serving`
+    with the kernels."""
+    return {k.rsplit(" ", 1)[0]: v["launches"][kernel]
+            for k, v in zoo_serving.items() if k.endswith(" auto")}
+
+
+def zoo_serving_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, vocab, int(n)).tolist()
+            for n in rng.integers(16, 65, ZOO_SERVE_REQUESTS)]
+
+
+def phase_zoo_serving() -> dict:
+    """:data:`ZOO_SERVING` through the slot engine with power accounting,
+    with ``kernel_backend="auto"`` (K1 in the prefill accounting, K2 in
+    every decode matmul the JAX package runs through its backend, K3 in
+    each sampled step's accounting) and ``"ref"`` (every plain version):
+    greedy tokens equal (or parted at a tie, :func:`compare_runs`) and
+    every request's energies within rtol 1e-6; K2's launches the decode
+    steps times :func:`zoo_sites`' count, K3's two a sampled step (the
+    two monitored weights); the recurrent arch's prompts prefilled at
+    their exact lengths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+               kz.fused_matmul_counters_cuda)
+    out = {}
+    for arch, layers in ZOO_SERVING:
+        full = get_config(arch)
+        acfg = full.with_(n_layers=layers)
+        with torch.no_grad():
+            params = lm.init_model(
+                acfg, torch.Generator(device="cuda").manual_seed(0))
+        prompts = zoo_serving_prompts(acfg.vocab)
+        k2_step = zoo_sites(acfg)[2]
+        runs = {}
+        for backend in ("auto", "ref"):
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            eng = ServeEngine(params, acfg, ServeConfig(
+                max_slots=ZOO_SERVE_SLOTS, cache_len=ZOO_SERVE_CACHE,
+                power_monitor=True, kernel_backend=backend))
+            gaps = record_gaps(eng) if backend == "ref" else {}
+            lengths = []
+            prefill = eng._prefill
+
+            def recording_prefill(weights, toks, length, prefill=prefill,
+                                  lengths=lengths):
+                lengths.append((toks.shape[1], length))
+                return prefill(weights, toks, length)
+            eng._prefill = recording_prefill
+            for p in prompts:
+                eng.submit(p, max_new_tokens=ZOO_SERVE_NEW)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = {r.uid: r for r in eng.run()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            steps = eng.stats["decode_steps"]
+            for r in done.values():
+                if (r.finish_reason != "length"
+                        or len(r.generated) != ZOO_SERVE_NEW
+                        or not 0 < r.power.saving_total < 1):
+                    raise AssertionError(f"{arch} {backend} request "
+                                         f"{r.uid}: {r.finish_reason}, "
+                                         f"{len(r.generated)} tokens, "
+                                         f"{r.power.summary()}")
+            if len(done) != ZOO_SERVE_REQUESTS:
+                raise AssertionError(f"{arch}: {len(done)} retired")
+            want = ({"gated_row_matmul_cuda": k2_step * steps,
+                     "fused_matmul_counters_cuda": 2 * steps}
+                    if backend == "auto" else
+                    {"gated_row_matmul_cuda": 0,
+                     "fused_matmul_counters_cuda": 0})
+            if ({k: launches[k] for k in want} != want
+                    or (launches["fused_counters_cuda"] > 0)
+                    != (backend == "auto")):
+                raise AssertionError(f"{arch} {backend}: launches "
+                                     f"{launches}, expected {want}")
+            exact = all(b == n for b, n in lengths)
+            if not eng._pad_safe and not exact:
+                raise AssertionError(f"{arch}: prefill padded {lengths}")
+            runs[backend] = (eng, done, gaps)
+            tok_s = eng.stats["tokens"] / wall
+            out[f"{arch} {backend}"] = {
+                "layers": layers, "of_layers": full.n_layers,
+                "decode_steps": steps, "tokens": eng.stats["tokens"],
+                "wall_s": wall, "tokens_per_s": tok_s,
+                "launches": launches, "prefill_lengths": lengths,
+                "exact_length_prefill": exact}
+            log(f"zoo serving {arch} (full width, depth {layers} of "
+                f"{full.n_layers}, kernel_backend={backend!r}, "
+                f"{ZOO_SERVE_SLOTS} slots, {ZOO_SERVE_REQUESTS} requests x "
+                f"{ZOO_SERVE_NEW} tokens): {steps} decode steps, "
+                f"{eng.stats['tokens']} tokens in {wall:.3f} s ({tok_s:.1f} "
+                f"tok/s incl. prefill and accounting); launches "
+                f"{json.dumps(launches)}; prefill (bucket, prompt) lengths "
+                f"{lengths}"
+                + (" -- at the exact prompt length (not pad-safe)"
+                   if not eng._pad_safe else ""))
+        (eng, done, _), (ref_eng, ref_done, gaps) = runs["auto"], runs["ref"]
+        equal = compare_runs(done, ref_done, gaps, (), f"{arch}'s plain run")
+        if equal == len(done):
+            assert_reports_close(eng, ref_eng, f"{arch}'s plain run's")
+        out[f"{arch} equal"] = equal
+        del params, runs, eng, ref_eng
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1108,7 +1332,7 @@ def record_gaps(eng) -> dict:
 
     def gap(logits):
         v = logits.topk(2, dim=-1).values.float().cpu()
-        return (v[:, 0] - v[:, 1]).tolist()
+        return list(zip((v[:, 0] - v[:, 1]).tolist(), v[:, 0].tolist()))
 
     def recording_decode(*args):
         logits = decode(*args)
@@ -1271,14 +1495,14 @@ def compare_runs(done: dict, ref_done: dict, gaps: dict, stochastic,
             raise AssertionError(
                 f"greedy request {uid} parts from {what} at its first token,"
                 f" which both runs draw from the same prefill")
-        margin = gaps[(uid, j)]
-        if not margin < LOGIT_TIE:
+        margin, top = gaps[(uid, j)]
+        if not margin < tie_limit(top):
             raise AssertionError(
                 f"greedy request {uid} parts from {what} at token {j}, "
                 f"top-2 logit margin {margin!r}")
         log(f"greedy request {uid}: a tie -- the tokens part at token {j} "
             f"where {what}'s top two logits are {margin!r} apart "
-            f"(< {LOGIT_TIE})")
+            f"(< {tie_limit(top)})")
     log(f"{equal} of {len(done)} requests' tokens equal {what}'s"
         + ("; their per-request energies agree within rtol 1e-6"
            if same_prefill else ""))
@@ -2612,6 +2836,7 @@ def main() -> int:
     traces = phase_trace()
     sweep, sweep_sites = phase_sweep()
     zoo = phase_zoo()
+    zoo_serving = phase_zoo_serving()
 
     breakdown = phase_breakdown("resnet50", designs)
     k1 = phase_timing(sites, msites)
@@ -2672,6 +2897,8 @@ def main() -> int:
         "launches_zoo": {a: {m: z[m]["launches"]["fused_counters_cuda"]
                              for m in ("forward", "decode")}
                          for a, z in zoo.items()},
+        "launches_zoo_serving": zoo_launches(zoo_serving,
+                                             "fused_counters_cuda"),
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",
@@ -2685,7 +2912,10 @@ def main() -> int:
         "launches_zoo_decode": {
             a: z["decode"]["launches"]["gated_row_matmul_cuda"]
             for a, z in zoo.items()},
+        "launches_zoo_serving": zoo_launches(zoo_serving,
+                                             "gated_row_matmul_cuda"),
         "zoo": zoo,
+        "zoo_serving": zoo_serving,
         "max_abs_err": err2,
         "fault6": {"int8": fault6["k2_int8"], "long_k": fault6["k2_long_k"]},
         "ms": k2["ms"],
@@ -2716,6 +2946,8 @@ def main() -> int:
         "events_ms": k3["events_ms"],
         "ms_over": "one call (two launches: the product and the counter "
                    "walk), device time (profiler); events_ms by CUDA events",
+        "launches_zoo_serving": zoo_launches(zoo_serving,
+                                             "fused_matmul_counters_cuda"),
         "ms_by_kernel": k3["ms_by_kernel"],
         "k2_at_product_shape_ms": k3["k2_at_product_shape_ms"],
         "shape": k3["shape"],

@@ -4,8 +4,7 @@ The paper's network-level analysis (every matmul streamed, energies
 summed before ratios) applied to a dense LM, an MoE, a recurrent model
 and the CNNs: one CSV row per (model, mode) with the site count and the
 aggregate savings. The LMs run at their smoke configs, as the JAX
-package's ``benchmarks/trace_full_model.py`` runs them; an arch the port
-does not run yet prints a row that says so in place of its numbers.
+package's ``benchmarks/trace_full_model.py`` runs them.
 
 Run:  python -m repro_torch.bench.trace_full_model [--quick] [--device cpu]
 """
@@ -24,21 +23,14 @@ ARCH_CELLS = [
 ]
 NET_CELLS = ["resnet50", "mobilenet"]
 
-#: what a cell of an arch the port does not run prints
-PENDING_ROW = "pending: ROADMAP queue 1 step 3"
-
 
 def main(quick: bool = False, device="cuda") -> None:
     from repro_torch import trace
-    from repro_torch.configs import PENDING
 
     archs = ARCH_CELLS[:1] if quick else ARCH_CELLS
     nets = NET_CELLS[:1] if quick else NET_CELLS
 
     for arch, mode in archs:
-        if arch in PENDING:
-            print(f"trace_{arch}_{mode},pending,{PENDING_ROW}")
-            continue
         rep, us = timed(
             lambda a=arch, m=mode: trace.trace_arch(
                 a, m, batch=2, seq=16, decode_steps=2, device=device),

@@ -200,12 +200,13 @@ def collect_sites(nets: Sequence[str] = ("resnet50",),
                 gen = torch.Generator(device=device).manual_seed(seed)
                 p = lm.init_model(acfg, gen)
             weights = lm.compute_weights(p, acfg)
-            tokens = model_inputs(acfg, batch, seq, seed, device)["tokens"]
+            inputs = lm.model_input(acfg, model_inputs(acfg, batch, seq,
+                                                       seed, device))
 
-            def fn(w, toks, acfg=acfg):
-                return lm.logits_fn(w, acfg, lm.apply_model(w, acfg,
-                                                            toks)[0])
-            trace_fn(fn, weights, tokens, emit=emit_for(arch), name=arch)
+            def fn(w, x, pos, acfg=acfg):
+                return lm.logits_fn(w, acfg, lm.apply_model(w, acfg, x,
+                                                            pos)[0])
+            trace_fn(fn, weights, *inputs, emit=emit_for(arch), name=arch)
     if not As:
         raise ValueError("no matmul sites traced (empty nets AND archs?)")
     return SweepSites(A=torch.stack(As), W=torch.stack(Ws),

@@ -1,8 +1,9 @@
 """Grouped-query attention: the causal prefill attention (online softmax
-over KV blocks), single-token decode against a KV cache, and the
-multi-token causal attention of a chunked prefill over a row's paged
-history (gathered by :func:`repro_torch.kernels.zvg_matmul.ref.
-gather_pages`).
+over KV blocks), sliding-window attention over gathered per-block KV
+windows, single-token decode against a KV cache, the multi-token causal
+attention of a chunked prefill over a row's paged history (gathered by
+:func:`repro_torch.kernels.zvg_matmul.ref.gather_pages`), and the score
+path of Multi-head Latent Attention (MLA, DeepSeek-V2).
 
 GQA is computed in grouped form -- q reshaped to ``[B, S, Hkv, rep, D]``
 and contracted against the un-repeated K/V. Scores are float32; the
@@ -14,6 +15,8 @@ prefill's loop over KV blocks names each block's frame ``scan[j]``, as the
 JAX package's ``lax.scan`` does.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -74,6 +77,41 @@ def chunked_attention(q, k, v, *, causal: bool = True, scale=None,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
+def sliding_window_attention(q, k, v, *, window: int, scale=None,
+                             block_q: int = 1024):
+    """Local causal attention, ``[B, S, H, D] -> [B, S, H, Dv]``: each
+    query block of ``block_q`` attends to its gathered ``window +
+    block_q`` KV neighbourhood, masked to the ``window`` positions at or
+    before each query."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    bq = min(block_q, s)
+    nb = -(-s // bq)
+    pad = nb * bq - s
+    if pad:
+        q, k, v = (torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], 1)
+                   for t in (q, k, v))
+    dev = q.device
+    idx = (torch.arange(nb, device=dev)[:, None] * bq - window
+           + torch.arange(window + bq, device=dev)[None, :])  # [nb, span]
+    valid = idx >= 0
+    idx = torch.clamp(idx, 0, nb * bq - 1)
+    kw, vw = k[:, idx], v[:, idx]                # [B, nb, span, Hkv, D]
+    qb = _group_q(q, hkv).reshape(b, nb, bq, hkv, h // hkv, d)
+    scores = interpret.einsum("bnqkrd,bnskd->bnkrqs", qb,
+                              kw).float() * scale
+    qpos = torch.arange(nb * bq, device=dev).reshape(nb, bq)
+    kpos = idx
+    mask = ((qpos[:, :, None] >= kpos[:, None, :])
+            & (qpos[:, :, None] - kpos[:, None, :] < window)
+            & valid[:, None, :] & (kpos[:, None, :] < s))
+    scores = torch.where(mask[None, :, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = interpret.einsum("bnkrqs,bnskd->bnqkrd", probs, vw)
+    return out.reshape(b, nb * bq, h, v.shape[-1])[:, :s]
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
                      softcap: float = 0.0):
     """Single-token decode: ``q [B, 1, H, D]`` against ``[B, Smax, Hkv,
@@ -115,3 +153,30 @@ def paged_chunk_attention(q, k_cache, v_cache, positions_q, *, scale=None,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = interpret.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
     return out.reshape(b, sq, h, v_cache.shape[-1])
+
+
+# ----------------------------------------------------------------- MLA ----
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2 family)."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0            # 0 = full-rank q projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+def mla_attention(q_nope, q_rope, k_nope, k_rope, value, *,
+                  causal: bool = True, block_k: int = 1024):
+    """MLA's parallel score path: per-head nope and rope parts of the
+    queries and keys concatenated, the rope key ``[B, S, 1, Dr]`` shared
+    by every head, then :func:`chunked_attention` scaled by the
+    concatenated head dim. ``q_nope``/``k_nope [B, S, H, Dn]``,
+    ``q_rope [B, S, H, Dr]``, ``value [B, S, H, Dv]``."""
+    h = q_nope.shape[2]
+    k_rope = k_rope.expand(k_rope.shape[:2] + (h, k_rope.shape[-1]))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    scale = (q_nope.shape[-1] + q_rope.shape[-1]) ** -0.5
+    return chunked_attention(q, k, value, causal=causal, scale=scale,
+                             block_k=block_k)

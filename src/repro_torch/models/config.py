@@ -1,20 +1,33 @@
 """Architecture configuration schema (the port's copy of the JAX
 package's ``ArchConfig``, field for field).
 
-Block specs are ``"<mixer>[+<ffn>]"`` strings. The port runs token LMs
-of attention blocks with RMS norm and RoPE: dense (``"attn+mlp"``) and
-MoE (``"attn+moe"``, with a :class:`MoEConfig`), with no MLA, RG-LRU or
-xLSTM sub-config. Any other architecture raises at construction (the
-rest of the LM zoo is ROADMAP queue 1 step 3).
+Block specs are ``"<mixer>[+<ffn>]"`` strings:
+
+* mixers: ``attn`` | ``local`` | ``mla`` | ``rglru`` | ``mlstm`` |
+  ``slstm``;
+* ffns: ``mlp`` | ``moe`` | ``none`` (no ``+<ffn>``).
+
+A mixer that needs a sub-config (``mla``: :class:`MLAConfig`,
+``rglru``: :class:`RGLRUConfig`, ``mlstm``/``slstm``:
+:class:`XLSTMConfig`, ``moe``: :class:`MoEConfig`) raises without it;
+an unknown mixer or FFN raises ``ValueError`` naming the spec, as the
+JAX package's ``make_mixer`` does.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from .attention import MLAConfig
 from .moe import MoEConfig
+from .recurrent import RGLRUConfig
+from .xlstm import XLSTMConfig
 
-#: the block specs this port runs
-SUPPORTED_BLOCKS = ("attn+mlp", "attn+moe")
+MIXERS = ("attn", "local", "mla", "rglru", "mlstm", "slstm")
+FFNS = ("mlp", "moe", "none")
+#: the sub-config each mixer or FFN needs
+_NEEDS = {"mla": ("mla", "MLAConfig"), "rglru": ("rglru", "RGLRUConfig"),
+          "mlstm": ("xlstm", "XLSTMConfig"),
+          "slstm": ("xlstm", "XLSTMConfig"), "moe": ("moe", "MoEConfig")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +60,9 @@ class ArchConfig:
     attn_scale: float = 0.0        # 0 => 1/sqrt(head_dim)
     window: int = 0                # sliding window for "local" blocks
     moe: MoEConfig | None = None
-    mla: object | None = None
-    rglru: object | None = None
-    xlstm: object | None = None
+    mla: MLAConfig | None = None
+    rglru: RGLRUConfig | None = None
+    xlstm: XLSTMConfig | None = None
     inputs: str = "tokens"         # tokens | embeds | codes
     codebooks: int = 0
     max_seq: int = 524288
@@ -83,22 +96,16 @@ class ArchConfig:
                 f"{self.name}: {self.n_layers} layers - {len(self.head)} "
                 f"head - {len(self.tail)} tail not divisible by group "
                 f"{len(self.pattern)}")
-        other = sorted({s for s in (*self.pattern, *self.head, *self.tail)
-                        if s not in SUPPORTED_BLOCKS})
-        subs = [f for f in ("mla", "rglru", "xlstm")
-                if getattr(self, f) is not None]
-        if (other or subs or self.norm != "rms" or self.pos != "rope"
-                or self.inputs != "tokens"):
-            raise NotImplementedError(
-                f"{self.name}: the port runs token LMs of attn+mlp and "
-                f"attn+moe blocks with RMS norm and RoPE only (blocks "
-                f"{other or 'ok'}, "
-                f"sub-configs {subs or 'none'}, norm {self.norm!r}, pos "
-                f"{self.pos!r}, inputs {self.inputs!r}); the rest of the "
-                f"LM zoo is ROADMAP queue 1 step 3")
-        if self.moe is None and any(s.endswith("+moe")
-                                    for s in self.block_specs):
-            raise ValueError(f"{self.name}: moe blocks need a MoEConfig")
+        for spec in dict.fromkeys(self.block_specs):
+            mixer, _, ffn = spec.partition("+")
+            if mixer not in MIXERS or (ffn or "none") not in FFNS:
+                raise ValueError(f"{self.name}: unknown block {spec!r} "
+                                 f"(mixers {MIXERS}, ffns {FFNS})")
+            for part in (mixer, ffn):
+                field, cls = _NEEDS.get(part, (None, None))
+                if field and getattr(self, field) is None:
+                    raise ValueError(f"{self.name}: {part} blocks need "
+                                     f"a {cls} ({field}=)")
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -2,14 +2,16 @@
 
 The JAX parameter tree arrives as nested dicts of numpy arrays (each
 ``Param.value``; the converter itself imports no JAX):
-``{"embed", "stack": {"head": [block], "groups": {"b<i>": block with a
-leading group axis}, "tail": [block]}, "final_norm", ["unembed"]}``. The
-port's tree is :func:`repro_torch.models.lm.init_model`'s: the scanned
-groups unstacked into one ``"layers"`` list in execution order (head,
-then each group's blocks, then tail), float32 masters kept as they are.
-An MoE block's ``ffn`` (``router [D, E]``, ``w_gate``/``w_up`` ``[E, D,
-F]``, ``w_down [E, F, D]`` and an optional ``shared`` MLP) carries
-across leaf by leaf, like every other sub-tree.
+``{["embed"], "stack": {"head": [block], "groups": {"b<i>": block with a
+leading group axis}, "tail": [block]}, "final_norm", ["unembed" |
+"heads"]}``. The port's tree is :func:`repro_torch.models.lm.
+init_model`'s: the scanned groups (``b0..b<n-1>`` of an n-block pattern)
+unstacked into one ``"layers"`` list in execution order (head, then each
+group's blocks, then tail), float32 masters kept as they are. Every
+sub-tree carries across leaf by leaf: an MoE block's experts, MLA's
+projections and norms, the RG-LRU's conv and Lambda, the mLSTM's and
+sLSTM's projections, gates and recurrent matrix, LayerNorm biases, the
+codes embedding ``[K, V, D]`` and heads ``[K, D, V]``.
 """
 from __future__ import annotations
 
@@ -37,10 +39,11 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the JAX tree holds {len(layers)} "
                          f"layers, the config {cfg.n_layers}")
-    out = {"embed": _tensors(tree["embed"], device), "layers": layers,
+    out = {"layers": layers,
            "final_norm": _tensors(tree["final_norm"], device)}
-    if "unembed" in tree:
-        out["unembed"] = _tensors(tree["unembed"], device)
+    for k in ("embed", "unembed", "heads"):
+        if k in tree:
+            out[k] = _tensors(tree[k], device)
     return out
 
 

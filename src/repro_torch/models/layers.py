@@ -9,6 +9,7 @@ match the JAX package are carried across by :mod:`.convert`.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +49,33 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in float32, returned in ``x``'s dtype. The
+    variance is the population variance (``jnp.var``), not torch's
+    default ``n - 1`` divisor."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
+
+
+def make_norm(kind: str, d: int, gen: torch.Generator) -> dict:
+    """``{"scale"}`` for RMS norm, ``{"scale", "bias"}`` for LayerNorm."""
+    p = {"scale": scale_param(d, gen)}
+    if kind != "rms":
+        p["bias"] = bias_param(d, gen)
+    return p
+
+
+def apply_norm(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
 # ------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
@@ -69,6 +97,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections,
+                theta: float = 1e6) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL) over ``x [B, S, H, D]``: the ``D / 2``
+    frequency bands split into ``sections`` (temporal, height, width),
+    each rotated by its own stream of ``positions [3, B, S]``."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
+                         f"to {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)
+    ang_per = positions[..., None].float() * freqs      # [3, B, S, D/2]
+    sel = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))        # [D/2]
+    ang = torch.gather(ang_per.movedim(0, -1), -1,
+                       sel.expand(ang_per.shape[1:3] + sel.shape)[..., None]
+                       )[..., 0]                        # [B, S, D/2]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings ``[..., d]`` (float32; MusicGen), ``sin``
+    on the first half of the bands and ``cos`` on the second."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------- scalars
 @functools.lru_cache(maxsize=None)
 def weak(v: float, dtype: torch.dtype) -> float:
@@ -80,21 +142,72 @@ def weak(v: float, dtype: torch.dtype) -> float:
 
 
 # -------------------------------------------------------------------- MLP
+#: the smallest normal float32 (and bfloat16) magnitude
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (float32) with subnormal values flushed to a zero of their
+    sign, as XLA's CPU code runs with denormals flushed (inputs and
+    results)."""
+    return torch.where(t.abs() < _TINY, t * 0, t)
+
+
+def sigmoid(h: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-h))``, each step rounded to ``h``'s dtype: the JAX
+    package's ``jax.nn.sigmoid`` as XLA expands its logistic on the CPU,
+    with subnormals flushed as XLA flushes them -- bit for bit in bf16
+    over every bf16 word (``torch.sigmoid`` rounds once and parts from it
+    in about a third of bf16 words; fault 9). The ``exp`` runs on float32
+    (PyTorch's CPU bf16 ``exp`` has left later float32 ``exp`` calls of
+    the process 1.5e-4 off, at random), and the quotient is a true
+    division (``torch.reciprocal`` and ``1 / t`` may be approximate)."""
+    e = _ftz(torch.exp(-_ftz(h.float()))).to(h.dtype)
+    return _ftz(torch.div(e.new_ones(()), e + 1).float()).to(h.dtype)
+
+
 def silu(h: torch.Tensor) -> torch.Tensor:
-    """``h * sigmoid(h)`` with the sigmoid as ``1 / (1 + exp(-h))``, each
-    step rounded to ``h``'s dtype: the JAX package's SiLU as XLA runs it
-    on the CPU (its logistic is expanded into those ops in the operand's
-    type), bit for bit in bf16; ``F.silu`` rounds once, and parts from it
-    in about 40% of bf16 words. The ``exp`` runs on float32: PyTorch's CPU
-    bf16 ``exp`` has left later float32 ``exp`` calls of the process
-    1.5e-4 off (at random). The quotient is a true division:
-    ``torch.reciprocal`` (and ``1 / t``) may be approximate there."""
-    e = torch.exp(-h.float()).to(h.dtype)
-    return h * torch.div(e.new_ones(()), e + 1)
+    """``h * sigmoid(h)``, each step rounded to ``h``'s dtype and
+    subnormals flushed (:func:`sigmoid`): the JAX package's SiLU as XLA
+    runs it on the CPU, bit for bit in bf16; ``F.silu`` rounds once, and
+    parts from it in about 40% of bf16 words (fault 8)."""
+    return _ftz((_ftz(h.float()) * sigmoid(h).float())).to(h.dtype)
 
 
-_ACTS = {"silu": silu, "gelu": lambda h: F.gelu(h, approximate="tanh"),
-         "relu": F.relu}
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU of ``jax.nn.gelu``, ``h * 0.5 * (1 + tanh(sqrt(2 /
+    pi) * (h + 0.044715 * h ** 3)))``, each step rounded to ``h``'s dtype
+    and subnormals flushed, as XLA runs it on the CPU: bit for bit in
+    bf16 over every bf16 word (``F.gelu(approximate="tanh")`` rounds once
+    and parts from it in about 43% of bf16 words; fault 9). The constants
+    enter as the JAX package's do, rounded to ``h``'s dtype."""
+    dt = h.dtype
+
+    def r(t):                  # one float32 step, rounded to h's dtype
+        return _ftz(_ftz(t).to(dt).float())
+
+    x = r(h.float())
+    cube = r(r(x * x) * x)
+    inner = r(x + r(weak(0.044715, dt) * cube))
+    t = r(torch.tanh(r(weak(math.sqrt(2 / math.pi), dt) * inner)))
+    cdf = r(weak(0.5, dt) * r(weak(1.0, dt) + t))
+    return r(x * cdf).to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)`` in its form: ``max(x, 0)
+    + log1p(exp(-|x|))``. In float32 the two frameworks' ``exp`` and
+    ``log1p`` round apart by an ulp in some 9-15% of values, so callers
+    hold the results at a tolerance, not bitwise."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+_ACTS = {"silu": silu, "gelu": gelu, "relu": F.relu}
 
 
 def make_mlp(d: int, f: int, gen: torch.Generator,

@@ -1,6 +1,18 @@
-"""Language-model wrapper: weights, embeddings, the output head, and the
-step builders the serving engine runs (slot prefill, paged chunk
-prefill, embedding for the power accountant, decode).
+"""Language-model wrapper: weights, embeddings, the output heads, and the
+step builders the serving engine and the tracer run (prefill, slot
+prefill, paged chunk prefill, embedding for the power accountant,
+decode).
+
+Input modalities, as the JAX package's (``cfg.inputs`` names the key of
+a batch dict that holds each, :func:`model_input`):
+
+* ``tokens`` -- ``[B, S]`` token ids;
+* ``embeds`` -- ``[B, S, D]`` precomputed patch embeddings (Qwen2-VL's
+  backbone; the vision frontend is a stub) with M-RoPE positions ``[3,
+  B, S]``;
+* ``codes`` -- ``[B, K, S]`` EnCodec codes (MusicGen's backbone): the K
+  codebook embeddings are summed, and K output heads ``[K, D, V]``
+  predict each stream's next code (logits ``[..., K, V]``).
 
 Two weight trees: ``params``, the float32 masters (:func:`init_model`,
 or :func:`repro_torch.models.convert.params_from_jax`), which the power
@@ -18,6 +30,7 @@ from repro_torch.trace import interpret
 from . import layers as L
 from . import matmul as mm
 from . import transformer as T
+from . import xlstm as X
 from .config import ArchConfig
 
 
@@ -25,102 +38,203 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+#: leaves the JAX package reads as float32 from their float32 masters:
+#: the MoE router, the RG-LRU's Lambda and the sLSTM's recurrent matrix
+#: (norm scales and biases too: every sub-tree named ``*norm*``)
+_F32_LEAVES = frozenset({"router", "lambda", "r"})
+
+
 # ----------------------------------------------------------------- params
 def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random float32 masters drawn from ``gen``, on its device:
-    ``{"embed": [V, D], "layers": [block, ...], "final_norm": {"scale"}}``
-    plus ``"unembed": [D, V]`` when the embeddings are not tied."""
-    p = {"embed": L.normal_init((cfg.vocab, cfg.d_model), 1.0, gen),
-         "layers": [T.make_block(cfg, spec, gen)
-                    for spec in cfg.block_specs],
-         "final_norm": {"scale": L.scale_param(cfg.d_model, gen)}}
-    if not cfg.tie_embeddings:
+    ``{"embed", "layers": [block, ...], "final_norm"}`` plus ``"unembed":
+    [D, V]`` for untied token LMs, or ``"heads": [K, D, V]`` for codes.
+    ``embed`` is ``[V, D]`` (tokens), ``[K, V, D]`` (codes), or absent
+    (embeds)."""
+    p = {}
+    if cfg.inputs == "tokens":
+        p["embed"] = L.normal_init((cfg.vocab, cfg.d_model), 1.0, gen)
+    elif cfg.inputs == "codes":
+        p["embed"] = L.normal_init((cfg.codebooks, cfg.vocab, cfg.d_model),
+                                   1.0, gen)
+    p["layers"] = [T.make_block(cfg, spec, gen) for spec in cfg.block_specs]
+    p["final_norm"] = L.make_norm(cfg.norm, cfg.d_model, gen)
+    if cfg.inputs == "codes":
+        p["heads"] = L.normal_init((cfg.codebooks, cfg.d_model, cfg.vocab),
+                                   cfg.d_model ** -0.5, gen)
+    elif not cfg.tie_embeddings:
         p["unembed"] = L.dense_param(cfg.d_model, cfg.vocab, gen)
     return p
 
 
 def compute_weights(params: dict, cfg: ArchConfig) -> dict:
-    """The weights the steps run on: matmul weights, biases and the
-    embedding in the compute dtype (norm scales and an MoE's router stay
-    float32, as the JAX package reads them), plus ``"head"``, the output
-    projection ``[D, V]`` made contiguous (the tied ``embed.T`` or
-    ``unembed``)."""
+    """The weights the steps run on: every leaf in the compute dtype but
+    norm scales and biases (every ``norm`` sub-tree) and the leaves of
+    :data:`_F32_LEAVES`, which stay float32 as the JAX package reads
+    them; plus ``"head"``, the output projection made contiguous (the
+    tied ``embed.T``, ``unembed``, or the codes heads ``[K, D, V]``)."""
     dt = compute_dtype(cfg)
 
     def cast(tree):
-        return {k: (cast(v) if isinstance(v, dict)
-                    else v if k == "router" else v.to(dt))
+        return {k: (v if "norm" in k or k in _F32_LEAVES
+                    else cast(v) if isinstance(v, dict) else v.to(dt))
                 for k, v in tree.items()}
 
-    layers = [{"norm1": p["norm1"], "norm2": p["norm2"],
-               "mixer": cast(p["mixer"]), "ffn": cast(p["ffn"])}
-              for p in params["layers"]]
-    embed = params["embed"].to(dt)
-    head = embed.T if cfg.tie_embeddings else params["unembed"].to(dt)
-    return {"embed": embed, "layers": layers,
-            "final_norm": params["final_norm"], "head": head.contiguous()}
+    out = {"layers": [cast(p) for p in params["layers"]],
+           "final_norm": params["final_norm"]}
+    if "embed" in params:
+        out["embed"] = params["embed"].to(dt)
+    if cfg.inputs == "codes":
+        head = params["heads"].to(dt)
+    else:
+        head = (out["embed"].T if cfg.tie_embeddings
+                else params["unembed"].to(dt))
+    out["head"] = head.contiguous()
+    return out
 
 
 # ------------------------------------------------------------------ embed
-def embed_inputs(embed: torch.Tensor, cfg: ArchConfig, tokens: torch.Tensor,
-                 positions: torch.Tensor | None = None):
-    """``(x [B, S, D], positions [B, S])`` from ``tokens [B, S]``, in the
-    dtype of the ``embed`` table given."""
-    b, s = tokens.shape
-    x = embed[tokens]
+def model_input(cfg: ArchConfig, batch: dict):
+    """``(input, positions)`` of a batch dict laid out as the JAX
+    package's (``{"tokens"}``, ``{"embeds", "positions"}`` or
+    ``{"codes"}``, positions optional but for embeds)."""
+    return batch[cfg.inputs], batch.get("positions")
+
+
+def embed_inputs(embed: torch.Tensor | None, cfg: ArchConfig,
+                 inputs: torch.Tensor, positions: torch.Tensor | None = None,
+                 dtype: torch.dtype | None = None):
+    """``(x [B, S, D], positions)`` from the model input (see the module
+    doc), in the dtype of the ``embed`` table given (``dtype`` for
+    embeds, which have none). Codes sum their K codebook embeddings in
+    float32 and round once, as XLA sums bf16 on the CPU, then add the
+    sinusoidal positions rounded to that dtype."""
+    b, s = inputs.shape[0], inputs.shape[-1 if cfg.inputs == "codes" else 1]
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        positions = torch.arange(s, device=inputs.device).expand(b, s)
+    if cfg.inputs == "embeds":
+        x = inputs.to(dtype)
+    elif cfg.inputs == "codes":
+        x = torch.stack([embed[i][inputs[:, i]]
+                         for i in range(inputs.shape[1])], dim=1)
+        x = x.float().sum(dim=1).to(embed.dtype)          # [B, S, D]
+        if cfg.pos == "sinusoidal":
+            x = x + L.sinusoidal_positions(positions,
+                                           cfg.d_model).to(x.dtype)
+    else:
+        x = embed[inputs]
     return x * L.weak(cfg.emb_mult, x.dtype), positions
 
 
 def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
               backend: str | None = None) -> torch.Tensor:
-    """``h [..., D] -> float32 logits [..., V]``, the head's matmul
-    through :func:`.matmul.matmul`."""
+    """``h [..., D] -> float32 logits [..., V]`` (``[..., K, V]`` for
+    codes): the token head's matmul through :func:`.matmul.matmul`, the
+    codes heads' einsum plain (as the JAX package's never takes the gated
+    kernel)."""
     with interpret.scope("lm_head"):
-        out = mm.matmul(h, weights["head"], backend)
+        if cfg.inputs == "codes":
+            out = interpret.einsum("...d,kdv->...kv", h, weights["head"])
+        else:
+            out = mm.matmul(h, weights["head"], backend)
     out = out.float() * cfg.logit_mult
     if cfg.logit_softcap > 0:
         out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
     return out
 
 
-def apply_model(weights: dict, cfg: ArchConfig, tokens, positions=None, *,
+def apply_model(weights: dict, cfg: ArchConfig, inputs, positions=None, *,
                 states=None, prefill=False, cache_len=0, pages=None,
                 backend=None):
     """Forward to the final hidden states: ``(h [B, S, D], states,
     aux)``, ``aux`` the MoE layers' load-balancing losses summed (a
     float32 zero for a dense model), as the JAX package's
-    ``apply_model`` returns them. Serving and tracing ignore ``aux``."""
+    ``apply_model`` returns them. ``inputs`` is the model input (see the
+    module doc). Serving and tracing ignore ``aux``."""
     with interpret.scope("embed"):
-        x, positions = embed_inputs(weights["embed"], cfg, tokens, positions)
+        x, positions = embed_inputs(weights.get("embed"), cfg, inputs,
+                                    positions, compute_dtype(cfg))
     x, states, aux = T.apply_stack(
         weights["layers"], x, cfg, positions=positions, states=states,
         prefill=prefill, cache_len=cache_len, pages=pages, backend=backend)
-    return L.rms_norm(x, weights["final_norm"]["scale"]), states, aux
+    return L.apply_norm(cfg.norm, weights["final_norm"], x), states, aux
 
 
 # ----------------------------------------------------------- step builders
 def make_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
                       dtype: torch.dtype, device) -> list:
-    """Zeroed per-layer ``(k_cache, v_cache)`` decode states, each
-    ``[batch, cache_len, Hkv, D]``. The paged engine's page pools are the
-    same call with ``batch = num_pages`` and ``cache_len = page_size``:
-    ``[P, ps, Hkv, D]`` per layer."""
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in cfg.block_specs]
+    """Zeroed per-layer decode states, as the JAX package's
+    ``make_decode_state`` builds them: ``(k_cache, v_cache)`` ``[batch,
+    cache_len, Hkv, D]`` (``attn``); the ring ``(k, v [batch, window, Hkv,
+    D], slots [batch, window] of -1)`` (``local``); the latent cache
+    ``(ckv [batch, cache_len, r], kr [batch, cache_len, dr])`` (``mla``);
+    ``(conv_buf, h)`` (``rglru``), ``(conv_buf, (C, n, m))`` (``mlstm``)
+    and ``(conv_buf, (c, n, h, m))`` (``slstm``), the conv buffers in
+    ``dtype`` and the recurrent states float32. The paged engine's page
+    pools are the same call with ``batch = num_pages`` and ``cache_len =
+    page_size``: ``[P, ps, Hkv, D]`` per layer."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    f32 = torch.float32
+
+    def block_state(spec: str):
+        mixer = T.parse_spec(spec)[0]
+        kv, hd = cfg.n_kv_heads, cfg.hd
+        if mixer == "attn":
+            return (zeros(batch, cache_len, kv, hd),
+                    zeros(batch, cache_len, kv, hd))
+        if mixer == "local":
+            w = cfg.window
+            return (zeros(batch, w, kv, hd), zeros(batch, w, kv, hd),
+                    torch.full((batch, w), -1, dtype=torch.int32,
+                               device=device))
+        if mixer == "mla":
+            return (zeros(batch, cache_len, cfg.mla.kv_lora_rank),
+                    zeros(batch, cache_len, cfg.mla.qk_rope_head_dim))
+        if mixer == "rglru":
+            w = cfg.rglru.lru_width or cfg.d_model
+            return (zeros(batch, cfg.rglru.conv_width - 1, w),
+                    zeros(batch, w, dt=f32))
+        x = cfg.xlstm
+        if mixer == "mlstm":
+            di = int(cfg.d_model * x.mlstm_proj_factor)
+            dh = di // x.heads
+            return (zeros(batch, x.conv_width - 1, di),
+                    (zeros(batch, x.heads, dh, dh, dt=f32),
+                     zeros(batch, x.heads, dh, dt=f32),
+                     zeros(batch, x.heads, dt=f32)))
+        if mixer == "slstm":
+            dh = cfg.d_model // x.heads
+            return (zeros(batch, x.conv_width - 1, cfg.d_model),
+                    X.slstm_state_init(batch, x.heads, dh, device))
+        raise ValueError(mixer)
+
+    return [block_state(spec) for spec in cfg.block_specs]
+
+
+def make_prefill_step(cfg: ArchConfig, cache_len: int):
+    """``(weights, inputs, positions=None) -> (logits at the last
+    position, states)``: a prefill at the input's own length."""
+    def prefill_step(weights, inputs, positions=None):
+        h, states, _ = apply_model(weights, cfg, inputs, positions,
+                                   prefill=True, cache_len=cache_len)
+        return logits_fn(weights, cfg, h[:, -1]), states
+
+    return prefill_step
 
 
 def make_slot_prefill_step(cfg: ArchConfig, cache_len: int):
-    """``(weights, tokens [1, S], length) -> (logits [1, V] at position
-    length-1, states)`` for a right-padded prompt of bucket length ``S >=
-    length``. Right padding is exact by causality: position ``p`` never
-    reads positions ``> p``, and every padded cache row is overwritten by
-    a decode write before a later step's mask admits it."""
-    def slot_prefill_step(weights, tokens, length: int):
-        h, states, _ = apply_model(weights, cfg, tokens, prefill=True,
+    """``(weights, inputs [1, S...], length) -> (logits at position
+    length-1, states)`` for a prompt right-padded to a bucket length ``S
+    >= length``. Right padding is exact by causality for attention and
+    MLA: position ``p`` never reads positions ``> p``, and every padded
+    cache row is overwritten by a decode write before a later step's mask
+    admits it. Recurrent mixers carry state through pad tokens and a
+    ``local`` ring can evict real ones: the engine prefills those archs at
+    the prompt's exact length."""
+    def slot_prefill_step(weights, inputs, length: int):
+        h, states, _ = apply_model(weights, cfg, inputs, prefill=True,
                                    cache_len=cache_len)
         return logits_fn(weights, cfg, h[:, max(length - 1, 0)]), states
 
@@ -159,29 +273,42 @@ def make_embed_step(cfg: ArchConfig):
 
 
 def make_decode_step(cfg: ArchConfig, backend: str | None = "auto"):
-    """``(weights, states, tokens [B, 1], positions [B, 1], pages=None)
-    -> logits [B, V]``, the states updated in place. Every projection, MLP
-    and lm-head matmul goes through ``backend`` (K2 on the card); with the
+    """``(weights, states, inputs [B, 1...], positions, pages=None) ->
+    logits [B, V]`` (``[B, K, V]`` for codes), the states updated in
+    place. The projections, MLPs and token head the JAX package runs
+    through its backend go through ``backend`` (K2 on the card); with the
     page tables ``pages [B, MP]`` the states are page pools and the
     attention is the paged decode attention (K4 on the card)."""
     mm.check_backend(backend)
 
-    def decode_step(weights, states, tokens, positions, pages=None):
-        h, _, _ = apply_model(weights, cfg, tokens, positions,
+    def decode_step(weights, states, inputs, positions, pages=None):
+        h, _, _ = apply_model(weights, cfg, inputs, positions,
                               states=states, pages=pages, backend=backend)
         return logits_fn(weights, cfg, h[:, -1], backend)
 
     return decode_step
 
 
+#: the mixer weights the power accountant may stream, in the JAX
+#: package's order of preference
+MONITOR_WEIGHTS = ("wq", "in_x", "up", "w_dkv")
+
+
 def pick_monitor_weights(params: dict, cfg: ArchConfig
                          ) -> list[tuple[str, torch.Tensor]]:
-    """The weights the power accountant streams against: the first block
-    of the repeated pattern (or the first block, with no pattern
-    groups), its ``wq`` and its MLP ``up`` projection -- the JAX
-    package's one selection rule (``layer0/wq``, ``layer0/ffn_up``)."""
+    """The weights the power accountant streams against -- the JAX
+    package's one selection rule: the first block of the repeated pattern
+    (or of the unrolled head or tail when there are no pattern groups),
+    the first of :data:`MONITOR_WEIGHTS` its mixer has (a 3-D weight
+    flattened to ``[K, rest]``) as ``layer0/<name>``, then its FFN's
+    ``up`` projection as ``layer0/ffn_up`` when it has one."""
     blk = params["layers"][len(cfg.head) if cfg.n_groups else 0]
-    out = [("layer0/wq", blk["mixer"]["wq"])]
+    out = []
+    for name in MONITOR_WEIGHTS:
+        if name in blk["mixer"]:
+            w = blk["mixer"][name]
+            out.append((f"layer0/{name}", w.reshape(w.shape[0], -1)))
+            break
     if "up" in blk.get("ffn", {}):
         out.append(("layer0/ffn_up", blk["ffn"]["up"]))
     return out

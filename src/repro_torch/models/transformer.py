@@ -1,34 +1,48 @@
 """Block composition and the layer stack.
 
-A block ``"attn+mlp"`` is pre-norm attention then a pre-norm MLP, each
-added to the residual stream; ``"attn+moe"`` has a mixture of experts
-(:mod:`.moe`) in the MLP's place, whose load-balancing loss the stack
-sums over the layers. The stack is a loop over the layers in
-execution order (``cfg.block_specs``); the JAX package's scanned groups
-are unstacked by :mod:`.convert`, and the port has no remat.
+A block spec ``"<mixer>[+<ffn>]"`` composes a sequence mixer with a
+feed-forward in pre-norm residual form (RMS norm or LayerNorm, as the
+config says). Mixers: grouped-query attention (``attn``), its
+sliding-window form over a ring cache (``local``), Multi-head Latent
+Attention over a latent cache (``mla``), the RG-LRU recurrent block
+(``rglru``, :mod:`.recurrent`) and the xLSTM blocks (``mlstm``,
+``slstm``, :mod:`.xlstm`). FFNs: a dense MLP, a mixture of experts
+(:mod:`.moe`, whose load-balancing loss the stack sums over the layers),
+or none. The stack is a loop over the layers in execution order
+(``cfg.block_specs``); the JAX package's scanned groups are unstacked by
+:mod:`.convert`, and the port has no remat.
 
 Modes (one code path each, shared weights):
-  prefill -- parallel over S, returns per-layer KV states padded to the
-             cache length;
-  decode  -- S = 1 with per-layer ``(k_cache, v_cache)`` states
-             ``[B, cache_len, Hkv, D]``; row ``i`` writes its keys and
-             values at ``positions[i, 0]``, which lets the serving engine
-             co-batch requests sitting at different positions. The port
-             writes the caches in place (the JAX package returns new
-             arrays that XLA aliases to the donated ones).
-  paged   -- ``pages [B, MP]`` given: the states are page pools ``[P,
-             ps, Hkv, D]``; each row writes this step's keys and values
-             into its pages through its table (in place), then attends
-             through the table: S = 1 by the paged decode attention (K4
-             on the card), a prefill chunk (S > 1) by the gather and
+  prefill -- parallel over S, returns each layer's decode state: KV
+             states padded to the cache length, the latent cache, the
+             ring of the last ``window`` positions (``-1`` marks a slot
+             never written), the recurrent and xLSTM states with their
+             conv buffers;
+  decode  -- S = 1 with per-layer states (:func:`repro_torch.models.lm.
+             make_decode_state`); row ``i`` writes at ``positions[i, 0]``,
+             which lets the serving engine co-batch requests sitting at
+             different positions. The port updates every state in place
+             (the JAX package returns new arrays that XLA aliases to the
+             donated ones).
+  paged   -- ``pages [B, MP]`` given (``attn`` only): the states are page
+             pools ``[P, ps, Hkv, D]``; each row writes this step's keys
+             and values into its pages through its table (in place), then
+             attends through the table: S = 1 by the paged decode attention
+             (K4 on the card), a prefill chunk (S > 1) by the gather and
              :func:`.attention.paged_chunk_attention`.
 
-Projection weights keep the names ``wq``/``wk``/``wv``/``wo``: the power
-accountant's site names come from them. The model-wide tracer's names come
-from :func:`repro_torch.trace.interpret.scope`, opened where the JAX
-models open a ``named_scope`` (the block, its mixer and FFN, each
-projection) and at each layer group of the stack (``scan[g]``, the JAX
-package's scan iteration); with no trace running they do nothing.
+Which products go through the gated matmul (K2 in decode) follows the
+JAX package exactly: the projections it runs through ``models.matmul``
+(attention's ``wq``/``wk``/``wv``/``wo``; MLA's ``w_dq``, ``w_dkv``,
+``w_kr`` and decode ``wo``; the MLPs; the head) take ``backend``; its
+bare ``@`` and einsums (the recurrent and xLSTM blocks, MLA's per-head
+products) never do. Projection weights keep the JAX package's names: the
+power accountant's site names come from them. The model-wide tracer's
+names come from :func:`repro_torch.trace.interpret.scope`, opened where
+the JAX models open a ``named_scope`` (the block, its mixer and FFN, each
+attention projection) and at each layer group of the stack (``scan[g]``,
+the JAX package's scan iteration); with no trace running they do
+nothing.
 """
 from __future__ import annotations
 
@@ -44,6 +58,8 @@ from . import attention as A
 from . import layers as L
 from . import matmul as mm
 from . import moe as M
+from . import recurrent as R
+from . import xlstm as X
 from .config import ArchConfig
 
 
@@ -66,14 +82,81 @@ def make_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return p
 
 
+def make_mla(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    mla = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = (mla.qk_nope_head_dim, mla.qk_rope_head_dim,
+                  mla.v_head_dim)
+    r = mla.kv_lora_rank
+    p = {"w_dkv": L.dense_param(d, r, gen),
+         "kv_norm": L.make_norm("rms", r, gen),
+         "w_kr": L.dense_param(d, dr, gen),
+         "w_uk": L.normal_init((r, h, dn), r ** -0.5, gen),
+         "w_uv": L.normal_init((r, h, dv), r ** -0.5, gen),
+         "wo": L.dense_param(h * dv, d, gen)}
+    if mla.q_lora_rank:
+        rq = mla.q_lora_rank
+        p["w_dq"] = L.dense_param(d, rq, gen)
+        p["q_norm"] = L.make_norm("rms", rq, gen)
+        p["w_uq"] = L.normal_init((rq, h, dn + dr), rq ** -0.5, gen)
+    else:
+        p["wq"] = L.normal_init((d, h, dn + dr), d ** -0.5, gen)
+    return p
+
+
+def make_mixer(cfg: ArchConfig, mixer: str, gen: torch.Generator) -> dict:
+    if mixer in ("attn", "local"):
+        return make_attention(cfg, gen)
+    if mixer == "mla":
+        return make_mla(cfg, gen)
+    if mixer == "rglru":
+        return R.make_recurrent_block(cfg.d_model, cfg.rglru, gen)
+    if mixer == "mlstm":
+        return X.make_mlstm(cfg.d_model, cfg.xlstm, gen)
+    if mixer == "slstm":
+        return X.make_slstm(cfg.d_model, cfg.xlstm, gen)
+    raise ValueError(mixer)
+
+
 def make_block(cfg: ArchConfig, spec: str, gen: torch.Generator) -> dict:
-    ffn = parse_spec(spec)[1]
-    return {"norm1": {"scale": L.scale_param(cfg.d_model, gen)},
-            "mixer": make_attention(cfg, gen),
-            "norm2": {"scale": L.scale_param(cfg.d_model, gen)},
-            "ffn": (M.make_moe(cfg.d_model, cfg.moe, gen) if ffn == "moe"
+    mixer, ffn = parse_spec(spec)
+    p = {"norm1": L.make_norm(cfg.norm, cfg.d_model, gen),
+         "mixer": make_mixer(cfg, mixer, gen)}
+    if ffn != "none":
+        p["norm2"] = L.make_norm(cfg.norm, cfg.d_model, gen)
+        p["ffn"] = (M.make_moe(cfg.d_model, cfg.moe, gen) if ffn == "moe"
                     else L.make_mlp(cfg.d_model, cfg.d_ff, gen,
-                                    gated=cfg.mlp_gated))}
+                                    gated=cfg.mlp_gated))
+    return p
+
+
+# ------------------------------------------------------------------ helpers
+def _decode_batch_pos(cfg: ArchConfig, positions: torch.Tensor):
+    """Each row's cache-write index of a decode step, ``[B]``: rows may
+    sit at different positions (continuous batching)."""
+    p = positions[0] if cfg.pos == "mrope" else positions
+    return p[:, 0].long()
+
+
+def _rope_qk(cfg: ArchConfig, q, k, positions):
+    if cfg.pos == "rope":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos == "mrope":
+        q = L.apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = L.apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    return q, k
+
+
+def _write_state(state, new):
+    """Copy a mixer's new decode state into the carried tensors, leaf by
+    leaf: the stack's states are updated in place."""
+    if isinstance(state, tuple):
+        for s, n in zip(state, new):
+            _write_state(s, n)
+    else:
+        state.copy_(new)
+    return state
 
 
 # ------------------------------------------------------------------ paging
@@ -94,13 +177,14 @@ def _page_targets(pages: torch.Tensor, positions: torch.Tensor,
 
 # --------------------------------------------------------------- attention
 def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
-                    positions: torch.Tensor, state=None,
+                    local: bool, positions: torch.Tensor, state=None,
                     prefill: bool = False, cache_len: int = 0,
                     pages: torch.Tensor | None = None,
                     backend: str | None = None):
-    """Attention of one block. Returns ``(out, state)``: the decode
-    state or the page pools updated in place, the prefill state padded to
-    ``cache_len``, or ``None``."""
+    """Attention of one block (``local``: sliding-window over a ring
+    cache). Returns ``(out, state)``: the decode state or the page pools
+    updated in place, the prefill state (padded to ``cache_len``, or the
+    ring), or ``None``."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     scale = cfg.attn_scale or None
@@ -119,8 +203,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     q = proj("wq", "bq", h)
     k = proj("wk", "bk", kv)
     v = proj("wv", "bv", kv)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, positions)
 
     if state is not None and pages is not None:   # ---- paged decode/chunk
         kp, vp = state                            # [P, ps, kv, hd] pools
@@ -140,24 +223,173 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         return wo(out), (kp, vp)
 
     if state is not None:                       # ---- single-token decode
-        kc, vc = state
-        bpos = positions[:, 0].long()
+        bpos = _decode_batch_pos(cfg, positions)
         rows = torch.arange(b, device=x.device)
-        kc[rows, bpos] = k[:, 0].to(kc.dtype)
-        vc[rows, bpos] = v[:, 0].to(vc.dtype)
-        out = A.decode_attention(q, kc, vc, bpos + 1, scale=scale,
-                                 softcap=cfg.attn_softcap)
-        return wo(out), (kc, vc)
+        if local:
+            kc, vc, slots = state
+            slot = bpos % kc.shape[1]
+            kc[rows, slot] = k[:, 0].to(kc.dtype)
+            vc[rows, slot] = v[:, 0].to(vc.dtype)
+            slots[rows, slot] = bpos.to(slots.dtype)
+            out = _ring_decode(q, kc, vc, slots, bpos, cfg, scale)
+        else:
+            kc, vc = state
+            kc[rows, bpos] = k[:, 0].to(kc.dtype)
+            vc[rows, bpos] = v[:, 0].to(vc.dtype)
+            out = A.decode_attention(q, kc, vc, bpos + 1, scale=scale,
+                                     softcap=cfg.attn_softcap)
+        return wo(out), state
 
-    out = A.chunked_attention(q, k, v, causal=True, scale=scale,
-                              softcap=cfg.attn_softcap,
-                              block_k=cfg.attn_block_k)
+    if local:
+        out = A.sliding_window_attention(q, k, v, window=cfg.window,
+                                         scale=scale)
+    else:
+        out = A.chunked_attention(q, k, v, causal=True, scale=scale,
+                                  softcap=cfg.attn_softcap,
+                                  block_k=cfg.attn_block_k)
     out = wo(out)
     if not prefill:
         return out, None
+    if local:
+        # the ring of the last `window` positions; -1 marks an empty slot
+        w_sz = cfg.window
+        take = min(s, w_sz)
+        t = torch.arange(s - take, s, device=x.device)
+        ring = t % w_sz
+        kc = k.new_zeros((b, w_sz, kv, hd))
+        vc = v.new_zeros((b, w_sz, kv, hd))
+        slots = torch.full((b, w_sz), -1, dtype=torch.int32,
+                           device=x.device)
+        kc[:, ring] = k[:, -take:]
+        vc[:, ring] = v[:, -take:]
+        slots[:, ring] = t.to(torch.int32)
+        return out, (kc, vc, slots)
     pad = (b, cache_len - s, kv, hd)
     return out, (torch.cat([k, k.new_zeros(pad)], dim=1),
                  torch.cat([v, v.new_zeros(pad)], dim=1))
+
+
+def _ring_decode(q, kc, vc, slots, bpos, cfg: ArchConfig, scale):
+    """Decode attention over a ring-buffer window cache: slot order does
+    not matter to the softmax, validity comes from the stored positions
+    (written, not ahead of the row, inside the window)."""
+    b, _, h, hd = q.shape
+    hkv = kc.shape[2]
+    qg = A._group_q(q, hkv)
+    scale = scale if scale is not None else hd ** -0.5
+    scores = interpret.einsum("bqkrd,bskd->bkrqs", qg, kc).float() * scale
+    valid = ((slots >= 0) & (slots <= bpos[:, None])
+             & (slots > bpos[:, None] - cfg.window))
+    scores = torch.where(valid[:, None, None, None], scores, A.NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = interpret.einsum("bkrqs,bskd->bqkrd", probs, vc)
+    return out.reshape(b, 1, h, vc.shape[-1])
+
+
+# --------------------------------------------------------------------- MLA
+def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
+              positions: torch.Tensor, state=None, prefill: bool = False,
+              cache_len: int = 0, pages: torch.Tensor | None = None,
+              backend: str | None = None):
+    """Multi-head Latent Attention of one block: the parallel path with
+    per-head keys and values expanded from the latent, or the absorbed
+    decode over the latent cache ``(ckv [B, T, r], kr [B, T, dr])``
+    (written in place). The prefill state is the latent cache padded to
+    ``cache_len``."""
+    if pages is not None:
+        raise NotImplementedError(
+            "paged MLA is not ported yet: ROADMAP queue 1 step 4 (paged "
+            "MLA serving)")
+    mla = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    ein = interpret.einsum
+
+    if mla.q_lora_rank:
+        cq = L.rms_norm(mm.matmul(x, p["w_dq"], backend),
+                        p["q_norm"]["scale"])
+        q = ein("bsr,rhe->bshe", cq, p["w_uq"])
+    else:
+        q = ein("bsd,dhe->bshe", x, p["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = L.rms_norm(mm.matmul(x, p["w_dkv"], backend),
+                     p["kv_norm"]["scale"])
+    kr = mm.matmul(x, p["w_kr"], backend)[:, :, None, :]
+    kr = L.apply_rope(kr, positions, cfg.rope_theta)
+
+    if state is not None:                       # ---- absorbed decode
+        ckv_c, kr_c = state
+        bpos = _decode_batch_pos(cfg, positions)
+        rows = torch.arange(b, device=x.device)
+        ckv_c[rows, bpos] = ckv[:, 0].to(ckv_c.dtype)
+        kr_c[rows, bpos] = kr[:, 0, 0].to(kr_c.dtype)
+        kpos = torch.arange(ckv_c.shape[1], device=x.device)
+        mask = (kpos[None, :] <= bpos[:, None])[:, None, None, :]
+        q_eff = ein("bshe,rhe->bshr", q_nope, p["w_uk"])
+        scores = (ein("bshr,btr->bhst", q_eff, ckv_c)
+                  + ein("bshe,bte->bhst", q_rope, kr_c)).float()
+        scores = scores * ((dn + dr) ** -0.5)
+        scores = torch.where(mask, scores, A.NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        lat = ein("bhst,btr->bshr", probs, ckv_c)
+        out = ein("bshr,rhe->bshe", lat, p["w_uv"])
+        return mm.matmul(out.reshape(b, s, h * dv), p["wo"], backend), state
+
+    # ---- parallel: per-head keys and values expanded from the latent
+    k_nope = ein("bsr,rhe->bshe", ckv, p["w_uk"])
+    value = ein("bsr,rhe->bshe", ckv, p["w_uv"])
+    out = A.mla_attention(q_nope, q_rope, k_nope, kr, value,
+                          block_k=cfg.attn_block_k)
+    out = mm.matmul(out.reshape(b, s, h * dv), p["wo"])
+    if not prefill:
+        return out, None
+    pad = cache_len - s
+    return out, (torch.cat([ckv, ckv.new_zeros((b, pad, ckv.shape[-1]))], 1),
+                 torch.cat([kr[:, :, 0],
+                            kr.new_zeros((b, pad, kr.shape[-1]))], 1))
+
+
+# ------------------------------------------------------------------- mixers
+def apply_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str, *,
+                positions: torch.Tensor, state=None, prefill: bool = False,
+                cache_len: int = 0, pages: torch.Tensor | None = None,
+                backend: str | None = None):
+    """One block's mixer: ``(out, state)`` (see the module doc)."""
+    if pages is not None and mixer not in ("attn", "mla"):
+        raise ValueError(f"paged decode supports position-masked cache "
+                         f"mixers (attn/mla) only, not {mixer!r}")
+    if mixer in ("attn", "local"):
+        return apply_attention(p, x, cfg, local=mixer == "local",
+                               positions=positions, state=state,
+                               prefill=prefill, cache_len=cache_len,
+                               pages=pages, backend=backend)
+    if mixer == "mla":
+        return apply_mla(p, x, cfg, positions=positions, state=state,
+                         prefill=prefill, cache_len=cache_len, pages=pages,
+                         backend=backend)
+    if mixer == "rglru":
+        out, new = R.apply_recurrent_block(p, x, state, want_state=prefill)
+        return out, (new if state is None else _write_state(state, new))
+    xc = cfg.xlstm
+    if mixer == "mlstm":
+        if state is not None:
+            conv_buf, mem = state
+            out, mem, conv_buf = X.mlstm_decode(p, x, xc, conv_buf, mem)
+            return out, _write_state(state, (conv_buf, mem))
+        out, mem, u = X.apply_mlstm(p, x, xc)
+        return out, ((R.conv_tail(u, xc.conv_width), mem) if prefill
+                     else None)
+    if mixer == "slstm":
+        if state is not None:
+            conv_buf, cell = state
+            out, cell, conv_buf = X.slstm_decode(p, x, xc, conv_buf, cell)
+            return out, _write_state(state, (conv_buf, cell))
+        out, cell = X.apply_slstm(p, x, xc)
+        return out, ((R.conv_tail(x, xc.conv_width), cell) if prefill
+                     else None)
+    raise ValueError(mixer)
 
 
 # -------------------------------------------------------------------- block
@@ -169,14 +401,16 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
     loss (a float32 zero for a dense block)."""
     mixer, ffn = parse_spec(spec)
     aux = torch.zeros((), device=x.device)
-    h = L.rms_norm(x, p["norm1"]["scale"])
+    h = L.apply_norm(cfg.norm, p["norm1"], x)
     with interpret.scope(mixer):
-        out, new_state = apply_attention(
-            p["mixer"], h, cfg, positions=positions, state=state,
+        out, new_state = apply_mixer(
+            p["mixer"], h, cfg, mixer, positions=positions, state=state,
             prefill=prefill, cache_len=cache_len, pages=pages,
             backend=backend)
     x = x + L.weak(cfg.resid_mult, out.dtype) * out
-    h = L.rms_norm(x, p["norm2"]["scale"])
+    if ffn == "none":
+        return x, new_state, aux
+    h = L.apply_norm(cfg.norm, p["norm2"], x)
     with interpret.scope(ffn):
         if ffn == "moe":
             y, aux = M.apply_moe(p["ffn"], h, cfg.moe, cfg.act, backend)

@@ -1,12 +1,13 @@
-"""Slot-based KV-cache manager for continuous batching.
+"""Slot-based decode-state manager for continuous batching.
 
 One set of per-layer decode states (``lm.make_decode_state`` with batch
-``max_slots``) lives on the device for the engine's lifetime; a *slot* is
-one batch row of every layer's caches. Admission copies a prefilled
-batch-1 state into the slot's row in place; retirement returns the slot
-to the free list. A dead row is harmless: decode steps write junk at its
-position 0, and nothing reads the row before the next admission
-overwrites all of it.
+``max_slots``: KV caches, rings, latent caches, recurrent states) lives
+on the device for the engine's lifetime; a *slot* is one batch row of
+every layer's states. Admission copies a prefilled batch-1 state into
+the slot's row in place; retirement returns the slot to the free list.
+A dead row is harmless: decode steps write junk at its position 0 (or
+into its recurrent state), and nothing reads the row before the next
+admission overwrites all of it.
 """
 from __future__ import annotations
 
@@ -76,9 +77,8 @@ class SlotCache:
         if prompt_len >= self.cache_len:
             raise RuntimeError(
                 f"prompt_len {prompt_len} >= cache_len {self.cache_len}")
-        for (kc, vc), (k1, v1) in zip(self.states, states1):
-            kc[slot].copy_(k1[0])
-            vc[slot].copy_(v1[0])
+        for st, st1 in zip(self.states, states1):
+            _install(st, st1, slot)
         self.positions[slot] = prompt_len
         self.tokens[slot] = first_token
 
@@ -97,3 +97,14 @@ class SlotCache:
         step; dead rows feed token 0 at position 0."""
         return (torch.from_numpy(self.tokens[:, None]).to(self.device),
                 torch.from_numpy(self.positions[:, None]).to(self.device))
+
+
+def _install(state, state1, slot: int) -> None:
+    """Copy a batch-1 decode state (a tensor or a nested tuple of them:
+    KV caches, a ring with its slots, a latent cache, recurrent states)
+    into row ``slot`` of the slot cache's state."""
+    if isinstance(state, tuple):
+        for s, s1 in zip(state, state1):
+            _install(s, s1, slot)
+    else:
+        state[slot].copy_(state1[0])

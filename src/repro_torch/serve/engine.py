@@ -5,8 +5,10 @@ and pumps it with :meth:`ServeEngine.step`:
 
   1. **admit** -- while a slot is free and the queue is not empty, prefill
      the next request (batch 1, the prompt right-padded to a power-of-two
-     bucket), copy its states into the free slot, and sample its first
-     token from the prefill logits;
+     bucket; at its exact length for archs whose prefill is not pad-safe:
+     recurrent and xLSTM state runs through pad tokens, and a ``local``
+     ring can evict real ones), copy its states into the free slot, and
+     sample its first token from the prefill logits;
   2. **decode** -- one shared decode step over all ``max_slots`` rows,
      each live slot at its own position (dead rows compute garbage that
      nothing reads); every projection, MLP and lm-head matmul runs the
@@ -46,12 +48,18 @@ from repro_torch.core import monitor as pm_monitor
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import parse_spec
 
 from . import sampling
 from .cache import SlotCache
 from .power import PowerAccountant
 from .request import Request, RequestStatus
 from .scheduler import FIFOScheduler
+
+#: mixers whose decode reads the cache strictly by position mask, which
+#: makes a right-padded prefill exact (``lm.make_slot_prefill_step``);
+#: archs with any other mixer prefill at the prompt's exact length
+_PAD_SAFE_MIXERS = frozenset({"attn", "mla"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +125,12 @@ class ServeEngine:
             raise NotImplementedError(
                 f"{', '.join(missing)} not ported yet: the port serves on "
                 f"one device without telemetry (ROADMAP steps 11 and 13)")
+        if cfg.inputs != "tokens":
+            raise ValueError(f"ServeEngine serves token LMs; {cfg.name} "
+                             f"has inputs={cfg.inputs!r}")
         self.cfg = cfg
+        self._pad_safe = {parse_spec(s)[0] for s in cfg.block_specs
+                          } <= _PAD_SAFE_MIXERS
         self.scfg = scfg
         self.device = torch.device(scfg.device)
         self.dtype = lm.compute_dtype(cfg)
@@ -227,7 +240,11 @@ class ServeEngine:
     def _bucket(self, length: int) -> int:
         """Static prefill length for a prompt: the smallest explicit
         bucket that holds it, else the next power of two, at most
-        ``cache_len - 1``."""
+        ``cache_len - 1``. Archs that are not pad-safe always prefill at
+        the exact length: explicit buckets must not override
+        correctness."""
+        if not self._pad_safe:
+            return length
         for b in sorted(self.scfg.prompt_buckets):
             if b >= length:
                 return min(b, self.scfg.cache_len - 1)

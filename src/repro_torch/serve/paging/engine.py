@@ -42,6 +42,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import lm
+from repro_torch.models.transformer import parse_spec
 
 from ..engine import ServeEngine
 from ..request import Request, RequestStatus
@@ -84,6 +85,18 @@ class PagedServeEngine(ServeEngine):
 
     def _build_state(self) -> None:
         pcfg = self.scfg.paging
+        mixers = {parse_spec(s)[0] for s in self.cfg.block_specs}
+        if not mixers <= {"attn", "mla"}:
+            raise ValueError(
+                f"paged serving supports position-masked cache mixers "
+                f"(attn/mla) only; {self.cfg.name} uses "
+                f"{sorted(mixers - {'attn', 'mla'})}")
+        if self.cfg.pos == "mrope":
+            raise ValueError("paged serving does not support mrope")
+        if "mla" in mixers:
+            raise NotImplementedError(
+                f"{self.cfg.name}: paged MLA serving is not ported yet "
+                f"(ROADMAP queue 1 step 4)")
         self._batch = pcfg.max_rows
         self.cache = PagedKVCache(self.cfg, pcfg.max_rows,
                                   self.scfg.cache_len, pcfg.page_size,

@@ -110,9 +110,12 @@ def einsum_operands_3d(spec: str, x: torch.Tensor, y: torch.Tensor
     the names both sides share (in output order) and contracting dims of
     the names only the inputs hold (sorted); it binds ``dot_general(x, y)``
     when that already gives the output's order, else ``dot_general(y,
-    x)``. Takes the einsums the port's models run: two operands, no name
-    repeated within one, none summed on one side only."""
-    ins, out = spec.replace(" ", "").split("->")
+    x)``. An ellipsis stands for the leading dims of an operand that holds
+    it (named apart from every letter of the spec). Takes the einsums the
+    port's models run: two operands, no name repeated within one, none
+    summed on one side only."""
+    spec = _expand_ellipsis(spec.replace(" ", ""), x, y)
+    ins, out = spec.split("->")
     xn, yn = ins.split(",")
     if len(set(xn)) != len(xn) or len(set(yn)) != len(yn) or any(
             c not in out and c not in (yn if c in xn else xn)
@@ -137,6 +140,23 @@ def einsum_operands_3d(spec: str, x: torch.Tensor, y: torch.Tensor
              [s_n.index(c) for c in contracted]),
             ([f_n.index(c) for c in batch], [s_n.index(c) for c in batch]))
     return dot_operands_3d(first, second, dims)
+
+
+def _expand_ellipsis(spec: str, x: torch.Tensor, y: torch.Tensor) -> str:
+    """``spec`` with each ``...`` spelled out in capital letters the spec
+    does not use, one per dim it stands for (the ellipses of the inputs
+    aligned at their last dims, as broadcasting aligns them)."""
+    if "..." not in spec:
+        return spec
+    ins, out = spec.split("->")
+    parts = ins.split(",")
+    free = [c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in spec]
+    n = max(t.dim() - len(p.replace("...", ""))
+            for p, t in zip(parts, (x, y)) if "..." in p)
+    names = "".join(free[:n])
+    parts = [p.replace("...", names[n - (t.dim() - len(p) + 3):])
+             for p, t in zip(parts, (x, y))]
+    return f"{parts[0]},{parts[1]}->{out.replace('...', names)}"
 
 
 def _drop_unit(t: torch.Tensor, names: str, other: torch.Tensor,

@@ -69,37 +69,63 @@ def make_capture_config(geometry: str = "paper16",
 
 
 # ------------------------------------------------------------ model inputs
-def synthetic_tokens(vocab: int, batch: int, seq: int,
-                     seed: int) -> np.ndarray:
-    """The JAX package's synthetic LM batch rule
-    (``repro.data.pipeline.SyntheticLM``, one host, step 0): Zipf(1.1)
-    tokens from ``default_rng(seed * 1_000_003 * 997)``, the first half of
-    each row copied into the second. int32 ``[batch, seq]``."""
+def _zipf(vocab: int) -> np.ndarray:
     p = 1.0 / np.arange(1, vocab + 1) ** 1.1
-    rng = np.random.default_rng(seed * 1_000_003 * 997)
-    toks = rng.choice(vocab, size=(batch, seq), p=p / p.sum())
-    half = seq // 2
-    toks[:, half:half * 2] = toks[:, :half]
-    return toks.astype(np.int32)
+    return p / p.sum()
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t.long() if t.dtype == torch.int32 else t
 
 
 def model_inputs(cfg, batch: int = 2, seq: int = 16, seed: int = 0,
                  device="cpu") -> dict:
-    """A deterministic training-style batch ``{"tokens": [batch, seq]}``
-    for a token LM (the same tokens as the JAX package's)."""
-    return {"tokens": torch.from_numpy(
-        synthetic_tokens(cfg.vocab, batch, seq, seed)).long().to(device)}
+    """A deterministic training-style batch for any registry config, as
+    tensors: the JAX package's synthetic LM batch rule
+    (``repro.data.pipeline.SyntheticLM``, one host, step 0), numpy only,
+    from ``default_rng(seed * 1_000_003 * 997)``, so the same values as
+    its. Zipf(1.1) tokens with the first half of each row copied into the
+    second (``{"tokens"}``); for codes ``{"codes": [batch, K, seq]}`` of
+    Zipf codes; for embeds the tokens as ``"labels"``, then ``"embeds"``
+    (float32 normal draws times 0.02) and ``"positions"`` ``[3, batch,
+    seq]``, every stream ``0..seq-1``. Ids and positions are int64."""
+    rng = np.random.default_rng(seed * 1_000_003 * 997)
+    if cfg.inputs == "codes":
+        codes = rng.choice(cfg.vocab, size=(batch, cfg.codebooks, seq),
+                           p=_zipf(cfg.vocab))
+        return {"codes": _tensor(codes, device)}
+    toks = rng.choice(cfg.vocab, size=(batch, seq), p=_zipf(cfg.vocab))
+    half = seq // 2
+    toks[:, half:half * 2] = toks[:, :half]
+    out = {"tokens": toks}
+    if cfg.inputs == "embeds":
+        emb = rng.standard_normal((batch, seq, cfg.d_model)).astype(
+            np.float32)
+        out = {"embeds": emb * 0.02,
+               "positions": np.broadcast_to(np.arange(seq), (3, batch, seq)),
+               "labels": toks}
+    return {k: _tensor(v, device) for k, v in out.items()}
 
 
 def decode_inputs(cfg, batch: int, pos: int, seed: int = 0,
                   device="cpu") -> dict:
-    """One-token decode-step inputs at position ``pos`` (the JAX
-    package's draws)."""
+    """One-step decode inputs at position ``pos``, the JAX package's
+    draws from ``default_rng(seed + pos)``: ``{"tokens" [batch, 1]}``,
+    ``{"codes" [batch, K, 1]}`` or ``{"embeds" [batch, 1, D]}`` (normal
+    draws times 0.02, rounded to bfloat16), with ``"positions"`` (``[3,
+    batch, 1]`` for embeds)."""
     rng = np.random.default_rng(seed + pos)
+    positions = torch.full((batch, 1), pos, dtype=torch.long, device=device)
+    if cfg.inputs == "embeds":
+        emb = rng.standard_normal((batch, 1, cfg.d_model)) * 0.02
+        return {"embeds": torch.from_numpy(emb).to(device, torch.bfloat16),
+                "positions": positions.expand(3, batch, 1)}
+    if cfg.inputs == "codes":
+        codes = rng.integers(0, cfg.vocab, (batch, cfg.codebooks, 1))
+        return {"codes": _tensor(codes, device), "positions": positions}
     tokens = rng.integers(0, cfg.vocab, (batch, 1))
-    return {"tokens": torch.from_numpy(tokens).long().to(device),
-            "positions": torch.full((batch, 1), pos, dtype=torch.long,
-                                    device=device)}
+    return {"tokens": _tensor(tokens, device), "positions": positions}
 
 
 # ------------------------------------------------------------------ drivers
@@ -119,7 +145,7 @@ def trace_arch(arch: str, mode: str = "forward", *, batch: int = 2,
     mode:
       forward -- the full-sequence forward and the output head, matmuls
                  on the plain path (training-shaped).
-      decode  -- an untraced slot prefill of the batch, then
+      decode  -- an untraced prefill of the batch, then
                  ``decode_steps`` traced decode steps (their matmuls
                  through ``backend``: the gated kernel on the card);
                  per-site statistics accumulate across steps.
@@ -140,25 +166,26 @@ def trace_arch(arch: str, mode: str = "forward", *, batch: int = 2,
     weights = lm.compute_weights(
         {k: _to(v, device) for k, v in params.items()}, acfg)
     skipped: list[str] = []
-    tokens = model_inputs(acfg, batch, seq, seed, device)["tokens"]
+    inputs, positions = lm.model_input(
+        acfg, model_inputs(acfg, batch, seq, seed, device))
     with torch.no_grad():
         if mode == "forward":
             # the output head too: the D x V projection is usually the
             # largest matmul, and decode mode traces it as well
-            def fn(w, toks):
-                h = lm.apply_model(w, acfg, toks)[0]
+            def fn(w, x, pos):
+                h = lm.apply_model(w, acfg, x, pos)[0]
                 return lm.logits_fn(w, acfg, h)
-            _, sk = trace_fn(fn, weights, tokens, emit=cap,
+            _, sk = trace_fn(fn, weights, inputs, positions, emit=cap,
                              include_conv=cfg.include_conv, name=arch)
             skipped.extend(sk)
         else:
-            prefill = lm.make_slot_prefill_step(acfg, seq + decode_steps)
-            _, states = prefill(weights, tokens, seq)
+            prefill = lm.make_prefill_step(acfg, seq + decode_steps)
+            _, states = prefill(weights, inputs, positions)
             decode = lm.make_decode_step(acfg, backend or "auto")
             for t in range(decode_steps):
-                step = decode_inputs(acfg, batch, seq + t, seed, device)
-                _, sk = trace_fn(decode, weights, states, step["tokens"],
-                                 step["positions"], emit=cap,
+                step = lm.model_input(acfg, decode_inputs(
+                    acfg, batch, seq + t, seed, device))
+                _, sk = trace_fn(decode, weights, states, *step, emit=cap,
                                  include_conv=cfg.include_conv, name=arch)
                 skipped.extend(sk)
     return build_report(cap, f"{arch}[{mode}]", tuple(dict.fromkeys(skipped)))

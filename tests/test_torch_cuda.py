@@ -26,6 +26,8 @@ at the split's edges, and in bfloat16 per element against the float32
 plain version. Each wrapper counts one launch a call. This file imports
 no JAX: the GPU machine need not have it.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -274,6 +276,63 @@ def test_gated_row_matmul_at_the_zoo_shapes(cuda, M, K, N, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (M, N)
     _assert_product(got, plain, x, w)
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (2, 2560, 32, torch.bfloat16), (2, 2560, 32, torch.float32),
+    (2, 2048, 64, torch.bfloat16), (2, 2048, 64, torch.float32),
+    (2, 4096, 256, torch.bfloat16), (2, 4096, 256, torch.float32),
+    (2, 8192, 29568, torch.bfloat16), (2, 8192, 152064, torch.bfloat16)],
+    ids=str)
+def test_gated_row_matmul_at_the_rest_of_the_zoo(cuda, M, K, N, dtype):
+    """The decode shapes the rest of the zoo brings: MiniCPM3's ``w_kr``
+    (N = 32), DeepSeek-V2-Lite's (N = 64), RecurrentGemma's one-KV-head
+    ``wk``/``wv`` (N = 256, hd 256), and in bf16, as served, Qwen2-VL-72B's
+    MLP up and its head (8192 x 152064, 2.5 GB), drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device="cuda")
+    x[1] = 0.0
+    w = torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
+    x, w = x.to(dtype), w.to(dtype)
+    before = kz.gated_row_matmul_cuda.launches
+    got = kz.gated_row_matmul_cuda(x, w)
+    assert kz.gated_row_matmul_cuda.launches == before + 1
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    _assert_product(got, plain, x, w)
+
+
+@pytest.mark.parametrize("d,K,N", [(2560, 2560, 256), (4096, 4096, 4096),
+                                   (2048, 2048, 3072), (2048, 4096, 4096)],
+                         ids=["minicpm3 w_dkv", "recurrentgemma in_x",
+                              "deepseek-v2-lite wq", "xlstm wq"])
+def test_fused_matmul_counters_at_the_new_monitor_weights(cuda, d, K, N):
+    """K3 through the power accountant's decode path at the rest of the
+    zoo's monitored layer-0 weights (``pick_monitor_weights``):
+    MiniCPM3's ``w_dkv``, RecurrentGemma's ``in_x``, DeepSeek-V2-Lite's
+    3-D ``wq`` flattened to 2048 x 3072, and xLSTM's ``wq`` (K = 4096
+    against 2048-wide activations, both sampled to the monitor's depth):
+    counters bitwise equal to the plain producer's, product within K2's
+    rule."""
+    from repro_torch.core import monitor
+    from repro_torch.serve import power
+
+    g = torch.Generator(device="cuda").manual_seed(d + K + N)
+    A = torch.randn(4, d, generator=g, device="cuda").to(torch.bfloat16)
+    A[2] = 0.0
+    W = torch.randn(K, N, generator=g, device="cuda")
+    mcfg = monitor.DEFAULT_MONITOR
+    before = kz.fused_matmul_counters_cuda.launches
+    fused = power._fused_decode_counters(A, W, mcfg, "cuda")
+    assert kz.fused_matmul_counters_cuda.launches == before + 1
+    plain = power._ref_decode_counters(A, W, dataclasses.replace(
+        mcfg, backend="ref"))
+    torch.cuda.synchronize()
+    for f, p in zip(fused[:4], plain):
+        assert torch.equal(f, p)
+    A2, W2 = power._subsample_decode(A, W, mcfg)
+    _assert_product(fused[4], zref.gated_row_matmul_ref(A2, W2), A2, W2)
 
 
 def _sweep_sites(B: int, seed: int):

@@ -11,6 +11,7 @@ KV states: float32 2e-6 and bfloat16 2**-7 of the state's largest
 magnitude (one bf16 unit at that scale).
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -62,24 +63,33 @@ def _close(got, want, tol, what):
 
 def test_config_registry_matches_the_jax_package():
     from repro.configs import ARCHS as JARCHS
-    assert set(ARCHS) == set(SMOKES) and ARCH in ARCHS
+    assert set(ARCHS) == set(SMOKES) == set(JARCHS) and ARCH in ARCHS
+    assert len(ARCHS) == 10
     for table, jtable in ((ARCHS, JARCHS), (SMOKES, JSMOKES)):
-        for name in table:
+        for name in jtable:
             got = dataclasses.asdict(table[name])
             want = dataclasses.asdict(jtable[name])
             assert got == want, name
     assert get_config(ARCH, smoke=True).n_layers == 2
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("recurrentgemma-9b")
+        get_config("no-such-arch")
 
 
 def test_blocks_other_than_attn_mlp_name_roadmap_step_8():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 3"):
-        ArchConfig(name="x", family="hybrid", n_layers=3, d_model=8,
-                   n_heads=2, n_kv_heads=2, d_ff=16, vocab=32,
-                   pattern=("rglru+mlp", "rglru+mlp", "attn+mlp"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 3"):
-        SMOKES[ARCH].with_(pos="mrope")
+    """Every mixer and FFN of the JAX package's zoo is accepted; an
+    unknown one raises ValueError naming the spec, as the JAX package's
+    ``make_mixer`` does."""
+    hybrid = ArchConfig(name="x", family="hybrid", n_layers=3, d_model=8,
+                        n_heads=2, n_kv_heads=2, d_ff=16, vocab=32,
+                        pattern=("rglru+mlp", "rglru+mlp", "local+mlp"),
+                        rglru=SMOKES["recurrentgemma-9b"].rglru)
+    assert hybrid.block_specs[-1] == "local+mlp"
+    for spec in ("lstm+mlp", "attn+glu"):
+        with pytest.raises(ValueError,
+                           match=re.escape(f"unknown block {spec!r}")):
+            hybrid.with_(pattern=(spec,))
+    with pytest.raises(ValueError, match="RGLRUConfig"):
+        hybrid.with_(rglru=None)
 
 
 def test_converter_unstacks_the_scanned_groups(model):

@@ -31,7 +31,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import SMOKES
 from repro_torch.core import monitor
 from repro_torch.kernels.zvg_matmul import kernel as kz
-from repro_torch.models import convert
+from repro_torch.models import convert, lm
 from repro_torch.serve import (PagedServeEngine, PagingConfig,
                                SamplingParams, ServeConfig, ServeEngine, power)
 
@@ -257,3 +257,103 @@ def test_serve_config_defaults_to_the_card():
         ServeConfig()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServeConfig(device="cuda")
+
+
+# ------------------------------------------------------ the rest of the zoo
+#: the token archs of the rest of the zoo the slot engine serves: MLA
+#: (pad-safe, prompts right-padded to buckets), RG-LRU with local
+#: attention and xLSTM (prefilled at the exact prompt length)
+ZOO_SERVED = ("deepseek-v2-lite-16b", "minicpm3-4b", "recurrentgemma-9b",
+              "xlstm-1.3b")
+
+
+def _zoo_model(arch):
+    jcfg = JSMOKES[arch].with_(compute_dtype="float32")
+    cfg = SMOKES[arch].with_(compute_dtype="float32")
+    jparams = jlm.init_model(jax.random.key(0), jcfg)
+    tree = jax.tree.map(lambda p: np.asarray(p.value), jparams,
+                        is_leaf=is_param)
+    return jcfg, jparams, cfg, convert.params_from_jax(tree, cfg)
+
+
+@pytest.mark.parametrize("arch", ZOO_SERVED)
+def test_zoo_archs_serve_as_the_jax_engine(arch):
+    """5 greedy requests through 3 slots (float32, cache 48): the JAX
+    engine's tokens, slots and steps, and with power accounting on its
+    per-request energies within rtol 1e-6. xLSTM serves without
+    accounting: its monitored weight (the mLSTM's ``wq``, ``di x di`` with
+    ``di = 2 d``) has a K unlike the embedded width's below the monitor's
+    1024-deep sample, which the JAX accountant refuses (an assertion in
+    its counter pass) and the port's too (a ValueError)."""
+    jcfg, jparams, cfg, params = _zoo_model(arch)
+    power_on = arch != "xlstm-1.3b"
+    prompts = _prompts(5, seed=11)
+    jeng = JServeEngine(jparams, jcfg, JServeConfig(
+        max_slots=3, cache_len=CACHE_LEN, power_monitor=power_on,
+        kernel_backend="pallas"))
+    eng = ServeEngine(params, cfg, ServeConfig(
+        max_slots=3, cache_len=CACHE_LEN, power_monitor=power_on,
+        device="cpu"))
+    assert eng._pad_safe == jeng._pad_safe == (arch in (
+        "deepseek-v2-lite-16b", "minicpm3-4b"))
+    jdone, done = _drain(jeng, prompts), _drain(eng, prompts)
+    assert ({u: (r.generated, r.slot, r.start_step, r.finish_step)
+             for u, r in done.items()}
+            == {u: (r.generated, r.slot, r.start_step, r.finish_step)
+                for u, r in jdone.items()})
+    if not power_on:
+        with pytest.raises(ValueError, match="shape mismatch"):
+            _drain(ServeEngine(params, cfg, ServeConfig(
+                max_slots=3, cache_len=CACHE_LEN, power_monitor=True,
+                device="cpu")), prompts[:1])
+        return
+    for uid, jr in jdone.items():
+        r = done[uid].power
+        assert r.sites == jr.power.sites
+        for d, comps in jr.power.energy.items():
+            for c, v in comps.items():
+                np.testing.assert_allclose(r.energy[d][c], v, rtol=1e-6,
+                                           err_msg=f"{uid} {d}/{c}")
+
+
+def test_explicit_buckets_cannot_break_recurrent_archs():
+    """``prompt_buckets`` must not right-pad archs whose prefill is not
+    pad-safe (recurrent state runs through pad tokens): the engine
+    ignores buckets there and serves the tokens of the solo run."""
+    _, _, cfg, params = _zoo_model("recurrentgemma-9b")
+    prompts = _prompts(2, seed=0, lo=3, hi=10)
+
+    def run(max_slots, buckets):
+        eng = ServeEngine(params, cfg, ServeConfig(
+            max_slots=max_slots, cache_len=CACHE_LEN,
+            prompt_buckets=buckets, device="cpu"))
+        assert not eng._pad_safe
+        assert eng._bucket(len(prompts[0])) == len(prompts[0])
+        for p in prompts:
+            eng.submit(p, max_new_tokens=3)
+        return {r.uid: r.generated for r in eng.run()}
+
+    assert run(2, (32,)) == run(1, ())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "musicgen-medium"])
+def test_embeds_and_codes_archs_are_not_served(arch):
+    cfg = SMOKES[arch]
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="serves token LMs"):
+        ServeEngine(params, cfg, ServeConfig(device="cpu"))
+
+
+def test_paged_serving_refuses_what_it_does_not_run():
+    """The paged engine takes attention archs: MLA waits for paged MLA
+    serving (ROADMAP queue 1 step 4), recurrent mixers and M-RoPE are
+    refused as the JAX paged engine refuses them."""
+    for arch, err, match in (
+            ("minicpm3-4b", NotImplementedError, "step 4"),
+            ("recurrentgemma-9b", ValueError, "attn/mla"),
+            ("xlstm-1.3b", ValueError, "attn/mla")):
+        cfg = SMOKES[arch]
+        params = lm.init_model(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(err, match=match):
+            ServeEngine(params, cfg, ServeConfig(
+                device="cpu", paging=PagingConfig(page_size=8)))

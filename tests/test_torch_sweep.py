@@ -313,8 +313,11 @@ def test_trace_full_model_rows_and_the_pending_cell(monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("trace_phi3.5-moe-42b-a6.6b_forward_sites,")
     assert lines[0].endswith(",25")
-    assert lines[2] == ("trace_recurrentgemma-9b_forward,pending,"
-                        "pending: ROADMAP queue 1 step 3")
+    # the recurrentgemma cell traces (5 smoke layers: 42 sites)
+    assert lines[2].startswith("trace_recurrentgemma-9b_forward_sites,")
+    assert lines[2].endswith(",42")
+    assert lines[3].startswith("trace_recurrentgemma-9b_forward_saving,")
+    assert not any("pending" in line for line in lines)
 
 
 def test_trace_full_model_quick_on_the_cpu(capsys):
