@@ -79,6 +79,21 @@ kernels' launch counts set to 0 just before it and read just after:
   RecurrentGemma-9B at 14 layers (prompts at their exact lengths), 4
   requests through 2 slots with the kernels and with every plain version:
   tokens and energies equal. Kernels: K1 (prefill accounting), K2, K3.
+  MiniCPM3-4B then serves paged (its latent caches in pages of 16): with
+  an ample pool it must give the slot run's tokens and energies, and so
+  must its plain run; the same prompts behind a shared 32-token prefix
+  must hit the prefix cache and give their own plain run's. No K4 there:
+  MLA gathers its pages, as the JAX package does.
+* windowed telemetry with the loop closed (``TelemetryConfig(window=2,
+  actuate=True)``) on the serving main path: the slot run's 8 requests
+  and paged run (b), each with the kernels (K1-K3, K4 in the paged run)
+  and with every plain version -- the windows' counters bitwise, the
+  same flip and swap timeline, the actuated totals and savings tracks
+  within rtol 1e-6, the windows summing to ``trace_report()`` bit for
+  bit, the telemetry's host time a retirement logged -- then the JAX
+  package's three traffic scenarios at their smoke configs through
+  ``run_scenario(device="cuda")``, against their plain runs, where
+  ``shift`` must flip its prefill sites from mant-exp to bic-west.
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
@@ -1034,10 +1049,66 @@ def zoo_launches(zoo_serving: dict, kernel: str) -> dict:
             for k, v in zoo_serving.items() if k.endswith(" auto")}
 
 
+def telemetry_launches(telemetry: dict, kernel: str) -> dict:
+    """One kernel's launches in each run of :func:`phase_telemetry` with
+    the kernels."""
+    return {k.rsplit(" ", 1)[0]: v["launches"][kernel]
+            for k, v in telemetry.items() if k.endswith(" auto")}
+
+
 def zoo_serving_prompts(vocab: int) -> list:
     rng = np.random.default_rng(2)
     return [rng.integers(0, vocab, int(n)).tolist()
             for n in rng.integers(16, 65, ZOO_SERVE_REQUESTS)]
+
+
+#: the zoo archs also served paged (pages of 16, 2 rows): an ample pool,
+#: then prompts sharing a ``ZOO_SHARED``-token prefix through the prefix
+#: cache, each with the kernels and with every plain version
+ZOO_PAGED = ("minicpm3-4b",)
+ZOO_PAGE = 16
+ZOO_SHARED = 32
+
+
+def zoo_shared_prompts(vocab: int, prompts: list) -> list:
+    """The zoo prompts behind one shared ``ZOO_SHARED``-token prefix
+    (``default_rng(3)``)."""
+    shared = np.random.default_rng(3).integers(0, vocab, ZOO_SHARED).tolist()
+    return [shared + p for p in prompts]
+
+
+def zoo_serve(params, acfg, prompts, backend: str, counted, paging=None,
+              record: bool = False):
+    """Serve ``prompts`` (greedy, :data:`ZOO_SERVE_NEW` tokens each) with
+    power accounting through 2 slots (or rows, with ``paging``): ``(eng,
+    {uid: request}, wall s, launches by wrapper name, gaps, (bucket,
+    prompt) prefill lengths)``, the launches of the run alone."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    eng = ServeEngine(params, acfg, ServeConfig(
+        max_slots=ZOO_SERVE_SLOTS, cache_len=ZOO_SERVE_CACHE,
+        power_monitor=True, kernel_backend=backend, paging=paging))
+    gaps = record_gaps(eng) if record else {}
+    lengths = []
+    prefill = eng._prefill
+
+    def recording_prefill(weights, toks, length, prefill=prefill,
+                          lengths=lengths):
+        lengths.append((toks.shape[1], length))
+        return prefill(weights, toks, length)
+    eng._prefill = recording_prefill
+    for p in prompts:
+        eng.submit(p, max_new_tokens=ZOO_SERVE_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {r.uid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (eng, done, wall, {fn.__name__: fn.launches for fn in counted},
+            gaps, lengths)
 
 
 def phase_zoo_serving() -> dict:
@@ -1049,15 +1120,20 @@ def phase_zoo_serving() -> dict:
     every request's energies within rtol 1e-6; K2's launches the decode
     steps times :func:`zoo_sites`' count, K3's two a sampled step (the
     two monitored weights); the recurrent arch's prompts prefilled at
-    their exact lengths."""
+    their exact lengths. The archs of :data:`ZOO_PAGED` then serve paged
+    (latent caches in pages of :data:`ZOO_PAGE`, gathered for the
+    absorbed decode, no K4): with an ample pool they must give the slot
+    run's tokens and energies, and so must their plain run; prompts
+    behind a shared prefix must hit the prefix cache and give their own
+    plain run's tokens and energies."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.power_counters import kernel as k1
     from repro_torch.kernels.zvg_matmul import kernel as kz
     from repro_torch.models import lm
-    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import PagingConfig
 
     counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
-               kz.fused_matmul_counters_cuda)
+               kz.fused_matmul_counters_cuda, kz.fused_paged_attention_cuda)
     out = {}
     for arch, layers in ZOO_SERVING:
         full = get_config(arch)
@@ -1067,71 +1143,63 @@ def phase_zoo_serving() -> dict:
                 acfg, torch.Generator(device="cuda").manual_seed(0))
         prompts = zoo_serving_prompts(acfg.vocab)
         k2_step = zoo_sites(acfg)[2]
-        runs = {}
-        for backend in ("auto", "ref"):
-            torch.cuda.synchronize()
-            for fn in counted:
-                fn.launches = 0
-            eng = ServeEngine(params, acfg, ServeConfig(
-                max_slots=ZOO_SERVE_SLOTS, cache_len=ZOO_SERVE_CACHE,
-                power_monitor=True, kernel_backend=backend))
-            gaps = record_gaps(eng) if backend == "ref" else {}
-            lengths = []
-            prefill = eng._prefill
 
-            def recording_prefill(weights, toks, length, prefill=prefill,
-                                  lengths=lengths):
-                lengths.append((toks.shape[1], length))
-                return prefill(weights, toks, length)
-            eng._prefill = recording_prefill
-            for p in prompts:
-                eng.submit(p, max_new_tokens=ZOO_SERVE_NEW)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            done = {r.uid: r for r in eng.run()}
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counted}
+        def check(label, backend, eng, done, launches, n_prompts):
             steps = eng.stats["decode_steps"]
             for r in done.values():
                 if (r.finish_reason != "length"
                         or len(r.generated) != ZOO_SERVE_NEW
                         or not 0 < r.power.saving_total < 1):
-                    raise AssertionError(f"{arch} {backend} request "
-                                         f"{r.uid}: {r.finish_reason}, "
+                    raise AssertionError(f"{label} request {r.uid}: "
+                                         f"{r.finish_reason}, "
                                          f"{len(r.generated)} tokens, "
                                          f"{r.power.summary()}")
-            if len(done) != ZOO_SERVE_REQUESTS:
-                raise AssertionError(f"{arch}: {len(done)} retired")
+            if len(done) != n_prompts:
+                raise AssertionError(f"{label}: {len(done)} retired")
             want = ({"gated_row_matmul_cuda": k2_step * steps,
-                     "fused_matmul_counters_cuda": 2 * steps}
+                     "fused_matmul_counters_cuda": 2 * steps,
+                     "fused_paged_attention_cuda": 0}
                     if backend == "auto" else
                     {"gated_row_matmul_cuda": 0,
-                     "fused_matmul_counters_cuda": 0})
+                     "fused_matmul_counters_cuda": 0,
+                     "fused_paged_attention_cuda": 0})
             if ({k: launches[k] for k in want} != want
                     or (launches["fused_counters_cuda"] > 0)
                     != (backend == "auto")):
-                raise AssertionError(f"{arch} {backend}: launches "
-                                     f"{launches}, expected {want}")
+                raise AssertionError(f"{label}: launches {launches}, "
+                                     f"expected {want}")
+
+        def record(key, eng, wall, launches, lengths, **extra):
+            tok_s = eng.stats["tokens"] / wall
+            out[key] = {
+                "layers": layers, "of_layers": full.n_layers,
+                "decode_steps": eng.stats["decode_steps"],
+                "tokens": eng.stats["tokens"], "wall_s": wall,
+                "tokens_per_s": tok_s, "launches": launches,
+                "prefill_lengths": lengths, **extra}
+            return tok_s
+
+        runs = {}
+        for backend in ("auto", "ref"):
+            eng, done, wall, launches, gaps, lengths = zoo_serve(
+                params, acfg, prompts, backend, counted,
+                record=backend == "ref")
+            label = f"{arch} {backend}"
+            check(label, backend, eng, done, launches, len(prompts))
             exact = all(b == n for b, n in lengths)
             if not eng._pad_safe and not exact:
                 raise AssertionError(f"{arch}: prefill padded {lengths}")
             runs[backend] = (eng, done, gaps)
-            tok_s = eng.stats["tokens"] / wall
-            out[f"{arch} {backend}"] = {
-                "layers": layers, "of_layers": full.n_layers,
-                "decode_steps": steps, "tokens": eng.stats["tokens"],
-                "wall_s": wall, "tokens_per_s": tok_s,
-                "launches": launches, "prefill_lengths": lengths,
-                "exact_length_prefill": exact}
+            tok_s = record(label, eng, wall, launches, lengths,
+                           exact_length_prefill=exact)
             log(f"zoo serving {arch} (full width, depth {layers} of "
                 f"{full.n_layers}, kernel_backend={backend!r}, "
                 f"{ZOO_SERVE_SLOTS} slots, {ZOO_SERVE_REQUESTS} requests x "
-                f"{ZOO_SERVE_NEW} tokens): {steps} decode steps, "
-                f"{eng.stats['tokens']} tokens in {wall:.3f} s ({tok_s:.1f} "
-                f"tok/s incl. prefill and accounting); launches "
-                f"{json.dumps(launches)}; prefill (bucket, prompt) lengths "
-                f"{lengths}"
+                f"{ZOO_SERVE_NEW} tokens): {eng.stats['decode_steps']} "
+                f"decode steps, {eng.stats['tokens']} tokens in "
+                f"{wall:.3f} s ({tok_s:.1f} tok/s incl. prefill and "
+                f"accounting); launches {json.dumps(launches)}; prefill "
+                f"(bucket, prompt) lengths {lengths}"
                 + (" -- at the exact prompt length (not pad-safe)"
                    if not eng._pad_safe else ""))
         (eng, done, _), (ref_eng, ref_done, gaps) = runs["auto"], runs["ref"]
@@ -1139,6 +1207,68 @@ def phase_zoo_serving() -> dict:
         if equal == len(done):
             assert_reports_close(eng, ref_eng, f"{arch}'s plain run's")
         out[f"{arch} equal"] = equal
+        if arch in ZOO_PAGED:
+            ample = PagingConfig(
+                page_size=ZOO_PAGE, max_rows=ZOO_SERVE_SLOTS,
+                num_pages=ZOO_SERVE_SLOTS * ZOO_SERVE_CACHE // ZOO_PAGE + 1)
+            shared = PagingConfig(
+                page_size=ZOO_PAGE, max_rows=ZOO_SERVE_SLOTS,
+                num_pages=ZOO_SERVE_SLOTS * ZOO_SERVE_CACHE // ZOO_PAGE + 1,
+                prefix_cache=True)
+            shared_prompts = zoo_shared_prompts(acfg.vocab, prompts)
+            paged = {}
+            for name, paging, reqs in (("paged", ample, prompts),
+                                       ("paged prefix", shared,
+                                        shared_prompts)):
+                for backend in ("auto", "ref"):
+                    peng, pdone, wall, launches, pgaps, lengths = zoo_serve(
+                        params, acfg, reqs, backend, counted, paging,
+                        record=True)
+                    label = f"{arch} {name} {backend}"
+                    check(label, backend, peng, pdone, launches, len(reqs))
+                    st = peng.stats
+                    c = peng.cache
+                    cached = len(peng.prefix) if peng.prefix is not None \
+                        else 0
+                    if c.n_live or c.n_free_pages + cached != \
+                            c.num_pages - 1:
+                        raise AssertionError(f"{label}: pages not "
+                                             f"conserved")
+                    if (name == "paged prefix"
+                            and not st["prefix_hit_requests"] > 0):
+                        raise AssertionError(f"{label}: no prefix hit")
+                    paged[(name, backend)] = (peng, pdone, pgaps)
+                    tok_s = record(label, peng, wall, launches, lengths,
+                                   prefix_hit_requests=st[
+                                       "prefix_hit_requests"],
+                                   peak_admitted=st["peak_admitted"])
+                    log(f"zoo serving {arch} paged (pages of {ZOO_PAGE}, "
+                        f"{c.num_pages - 1} usable, {ZOO_SERVE_SLOTS} rows"
+                        + (f", a {ZOO_SHARED}-token shared prefix, prefix "
+                           f"cache" if name == "paged prefix" else "")
+                        + f", kernel_backend={backend!r}): "
+                        f"{st['decode_steps']} decode steps, {st['tokens']} "
+                        f"tokens in {wall:.3f} s ({tok_s:.1f} tok/s); "
+                        f"launches {json.dumps(launches)} (no K4: MLA "
+                        f"gathers its latent pages); prefix hits "
+                        f"{st['prefix_hit_requests']}")
+            peng, pdone, pgaps = paged[("paged", "auto")]
+            eq = compare_runs(done, pdone, pgaps, (),
+                              f"{arch}'s ample paged run")
+            if eq == len(done):
+                assert_reports_close(eng, peng,
+                                     f"{arch}'s ample paged run's")
+            out[f"{arch} paged equal"] = eq
+            for name in ("paged", "paged prefix"):
+                (peng, pdone, _), (reng, rdone, rgaps) = (
+                    paged[(name, "auto")], paged[(name, "ref")])
+                eq = compare_runs(pdone, rdone, rgaps, (),
+                                  f"{arch}'s plain {name} run")
+                if eq == len(pdone):
+                    assert_reports_close(peng, reng,
+                                         f"{arch}'s plain {name} run's")
+                out[f"{arch} {name} ref equal"] = eq
+            del paged, peng, reng
         del params, runs, eng, ref_eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1349,15 +1479,19 @@ def record_gaps(eng) -> dict:
     return gaps
 
 
-def serve(params, cfg, backend: str, record: bool = False):
-    """Serve the smoke's requests with ``kernel_backend=backend``.
+def serve(params, cfg, backend: str, record: bool = False,
+          telemetry=None, setup=None):
+    """Serve the smoke's requests with ``kernel_backend=backend`` (and
+    ``ServeConfig.telemetry``; ``setup(engine)`` before the run).
     Returns ``(engine, {uid: request}, wall seconds, gaps)`` (the gaps of
     :func:`record_gaps` when ``record``)."""
     from repro_torch.serve import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, cfg, ServeConfig(
         max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE, power_monitor=True,
-        kernel_backend=backend))
+        kernel_backend=backend, telemetry=telemetry))
+    if setup is not None:
+        setup(eng)
     gaps = record_gaps(eng) if record else {}
     prompts, sampling = serving_requests(cfg.vocab)
     for p, sp in zip(prompts, sampling):
@@ -1637,8 +1771,9 @@ def paged_requests(vocab: int) -> list[dict]:
 
 
 def serve_paged(params, cfg, requests, backend: str, record: bool = False,
-                **paging):
-    """Serve ``requests`` (``submit`` arguments) on a paged engine.
+                telemetry=None, setup=None, **paging):
+    """Serve ``requests`` (``submit`` arguments) on a paged engine (with
+    ``ServeConfig.telemetry``; ``setup(engine)`` before the run).
     Returns ``(engine, {uid: request}, wall seconds, gaps, launches)``,
     the launches of K1-K4 in the run by wrapper name."""
     from repro_torch.kernels.power_counters import kernel as k1
@@ -1649,7 +1784,10 @@ def serve_paged(params, cfg, requests, backend: str, record: bool = False,
     classes = (SchedClass("default"), SchedClass("hi", priority=1))
     eng = ServeEngine(params, cfg, ServeConfig(
         cache_len=SERVE_CACHE, power_monitor=True, kernel_backend=backend,
+        telemetry=telemetry,
         paging=PagingConfig(page_size=PAGE, classes=classes, **paging)))
+    if setup is not None:
+        setup(eng)
     gaps = record_gaps(eng) if record else {}
     for r in requests:
         eng.submit(Request(**r))
@@ -1778,6 +1916,296 @@ def phase_paged_serving(cfg, params, slot_eng, slot_done: dict) -> dict:
         assert_reports_close(eng, ref_eng, "the plain paged run's")
     out["b_ref_wall_s"] = ref_wall
     out["engine"] = eng
+    return out
+
+
+# ------------------------------------ telemetry and actuation (K1-K4)
+#: the telemetry window (retirements) of the Qwen1.5-0.5B runs, the loop
+#: closed: flips found on a window are committed at the next step
+TELEMETRY_WINDOW = 2
+
+
+def timed_telemetry(eng, timer: dict) -> None:
+    """Time ``eng``'s telemetry on the host: the retirement hook (the
+    registry and, as windows close, the selector) and the step
+    boundary's swap commit, summed into ``timer``."""
+    hooks = eng.accountant.retire_hooks
+    on_retire = hooks[-1]
+
+    def timed_retire(rec):
+        t0 = time.perf_counter()
+        on_retire(rec)
+        timer["retire_s"] += time.perf_counter() - t0
+        timer["retirements"] += 1
+    hooks[-1] = timed_retire
+    swaps = eng._apply_design_swaps
+
+    def timed_swaps():
+        t0 = time.perf_counter()
+        swaps()
+        timer["swap_s"] += time.perf_counter() - t0
+    eng._apply_design_swaps = timed_swaps
+
+
+def telemetry_counters_equal(reg, ref_reg, tokens_equal: set,
+                             what: str) -> dict:
+    """Window by window, the site counters of two runs' registries: the
+    windows hold the same retirements, every counted key (toggles, zero
+    counts) is bitwise equal and every priced energy key within rtol
+    1e-6 (how many are bitwise is returned). Windows holding a request
+    whose tokens parted (at a tie, :func:`compare_runs`) are skipped and
+    counted."""
+    win, ref_win = reg.closed_windows(), ref_reg.closed_windows()
+    if [(w.index, w.seqs, w.uids) for w in win] != \
+            [(w.index, w.seqs, w.uids) for w in ref_win]:
+        raise AssertionError(f"{what}: the windows hold other requests")
+    stats = {"windows": len(win), "skipped": 0, "counted_keys": 0,
+             "energy_keys": 0, "energy_bitwise": 0}
+    for w, v in zip(win, ref_win):
+        if not set(w.uids) <= tokens_equal:
+            stats["skipped"] += 1
+            continue
+        got, want = w.site_counters(), v.site_counters()
+        if got.keys() != want.keys():
+            raise AssertionError(f"{what} window {w.index}: sites differ")
+        for site, c in want.items():
+            if got[site].keys() != c.keys():
+                raise AssertionError(f"{what} window {w.index} {site}: "
+                                     f"keys differ")
+            for k, x in c.items():
+                if k.startswith("e/"):
+                    assert_close(got[site][k], x,
+                                 f"{what} window {w.index} {site} {k}")
+                    stats["energy_keys"] += 1
+                    stats["energy_bitwise"] += got[site][k] == x
+                elif got[site][k] != x:
+                    raise AssertionError(
+                        f"{what} window {w.index} {site} {k}: "
+                        f"{got[site][k]!r} vs {x!r}")
+                else:
+                    stats["counted_keys"] += 1
+    return stats
+
+
+def timeline_key(tl) -> tuple:
+    """The decisions of a timeline: choices, flips and swaps."""
+    return ([(w.window, w.choices, w.raw_choices) for w in tl.windows],
+            [(f.window, f.site, f.old, f.new) for f in tl.flip_events],
+            [(e.epoch, e.window, e.sites) for e in tl.swaps])
+
+
+def windows_sum_to_trace(eng, what: str) -> None:
+    """The registry's windows replayed in retirement order give the
+    serve-wide report bit for bit (without the actuated pseudo-design,
+    which ``trace_report()`` adds from the accountant)."""
+    from repro_torch.trace.report import build_report
+
+    model = f"serve/{eng.cfg.name}"
+    merged = eng.telemetry.registry.merged_report(model=model)
+    want = build_report(eng.accountant.capture, model=model)
+    if json.dumps(merged.to_json_dict(), sort_keys=True) != \
+            json.dumps(want.to_json_dict(), sort_keys=True):
+        raise AssertionError(f"{what}: windows do not sum to the trace")
+
+
+def compare_telemetry(eng, done: dict, ref_eng, ref_done: dict,
+                      equal_uids: set, what: str) -> dict:
+    """Telemetry of a run with the kernels against its plain run: the
+    windows' counters (:func:`telemetry_counters_equal`), the same flip
+    and swap timeline, actuated totals and savings tracks within rtol
+    1e-6 -- where every request's tokens are equal -- and in each run
+    the windows summing to the trace bit for bit."""
+    for e, w in ((eng, what), (ref_eng, f"{what}'s plain run")):
+        e.telemetry.finalize()
+        windows_sum_to_trace(e, w)
+        retired = {r.uid for r in e.telemetry.registry.records}
+        if retired != set(done):
+            raise AssertionError(f"{w}: the registry saw {len(retired)} "
+                                 f"retirements")
+    stats = telemetry_counters_equal(
+        eng.telemetry.registry, ref_eng.telemetry.registry, equal_uids, what)
+    tl, ref_tl = eng.telemetry.timeline, ref_eng.telemetry.timeline
+    all_equal = equal_uids >= set(done)
+    if all_equal:
+        if timeline_key(tl) != timeline_key(ref_tl):
+            raise AssertionError(f"{what}: the timeline differs from the "
+                                 f"plain run's")
+        tot, ref_tot = (eng.accountant.actuated_totals(),
+                        ref_eng.accountant.actuated_totals())
+        for c, v in ref_tot.items():
+            assert_close(tot[c], v, f"{what} actuated {c}")
+        sm, ref_sm = tl.summary(), ref_tl.summary()
+        for k, v in ref_sm.items():
+            if k.startswith("saving_") and not abs(sm[k] - v) <= 1e-6:
+                raise AssertionError(f"{what} {k}: {sm[k]!r} vs {v!r}")
+        for r in done.values():
+            p = ref_done[r.uid].power.energy["actuated"]
+            for c, v in p.items():
+                assert_close(r.power.energy["actuated"][c], v,
+                             f"{what} request {r.uid} actuated {c}")
+    sm = tl.summary()
+    log(f"{what} telemetry (window {eng.telemetry.tcfg.window}, actuate "
+        f"{eng.telemetry.tcfg.actuate}): {sm['n_windows']} windows, "
+        f"{sm['n_flips']} flips, {sm['n_swaps']} swaps; savings fixed "
+        f"{sm.get('saving_fixed')!r}, online {sm.get('saving_online')!r}, "
+        f"oracle {sm.get('saving_oracle')!r}, actuated "
+        f"{sm.get('saving_actuated')!r}; against the plain run: "
+        f"{stats['windows'] - stats['skipped']} of {stats['windows']} "
+        f"windows compared, {stats['counted_keys']} counted keys bitwise, "
+        f"{stats['energy_bitwise']} of {stats['energy_keys']} energy keys "
+        f"bitwise (all within rtol 1e-6)"
+        + ("; timeline, actuated totals and savings tracks equal"
+           if all_equal else "; timeline not compared: tokens parted")
+        + "; windows sum to the trace bit for bit")
+    return {"summary": sm, "compared": stats, "timeline_compared": all_equal,
+            "flips": [f.to_json_dict() for f in tl.flip_events],
+            "swaps": [e.to_json_dict() for e in tl.swaps]}
+
+
+def phase_telemetry(cfg, params) -> dict:
+    """Windowed telemetry with the loop closed on the serving main path
+    (Qwen1.5-0.5B at full width, ``phase_serving``'s model): the slot
+    engine on its 8 requests, then paged run (b) (16 requests, chunks,
+    prefix sharing, two classes), each with ``TelemetryConfig(window=2,
+    actuate=True)``, with the kernels (K1-K3, and K4 in the paged run)
+    and with every plain version (:func:`compare_telemetry`); then the
+    JAX package's three scenarios at their smoke configs through
+    ``run_scenario(device="cuda")``, with the kernels and with
+    ``kernel_backend="ref"``, where ``shift`` must flip its prefill sites
+    from mant-exp to bic-west as the JAX tests assert."""
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.serve.telemetry import TelemetryConfig
+    from repro_torch.serve.telemetry.scenarios import SCENARIOS, run_scenario
+
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+               kz.fused_matmul_counters_cuda, kz.fused_paged_attention_cuda)
+    tcfg = TelemetryConfig(window=TELEMETRY_WINDOW, actuate=True)
+    out = {}
+
+    def run(label, backend, fn):
+        timer = {"retire_s": 0.0, "swap_s": 0.0, "retirements": 0}
+        torch.cuda.synchronize()
+        for f in counted:
+            f.launches = 0
+        eng, done, wall, gaps = fn(lambda e: timed_telemetry(e, timer))
+        t0 = time.perf_counter()
+        eng.telemetry.finalize()
+        finalize_s = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in counted}
+        kernels = backend == "auto"
+        if any(v > 0 for k, v in launches.items()
+               if k != "fused_paged_attention_cuda") != kernels:
+            raise AssertionError(f"{label}: launches {launches}")
+        ms = 1e3 * timer["retire_s"] / max(timer["retirements"], 1)
+        log(f"{label} with telemetry, kernel_backend={backend!r}: "
+            f"{eng.stats['decode_steps']} decode steps, "
+            f"{eng.stats['tokens']} tokens in {wall:.3f} s; launches "
+            f"{json.dumps(launches)}; telemetry host time "
+            f"{ms:.4f} ms a retirement ({timer['retirements']} "
+            f"retirements), swap commits {1e3 * timer['swap_s']:.3f} ms "
+            f"over {eng.stats['steps']} steps, finalize "
+            f"{1e3 * finalize_s:.3f} ms")
+        out[f"{label} {backend}"] = {
+            "wall_s": wall, "tokens": eng.stats["tokens"],
+            "decode_steps": eng.stats["decode_steps"],
+            "launches": launches, "retirements": timer["retirements"],
+            "retire_ms": ms, "swap_ms": 1e3 * timer["swap_s"],
+            "finalize_ms": 1e3 * finalize_s}
+        return eng, done, gaps, launches
+
+    def slot(setup, backend):
+        eng, done, wall, gaps = serve(params, cfg, backend,
+                                      record=backend == "ref",
+                                      telemetry=tcfg, setup=setup)
+        return eng, done, wall, gaps
+
+    def paged(setup, backend):
+        eng, done, wall, gaps, _ = serve_paged(
+            params, cfg, paged_requests(cfg.vocab), backend,
+            record=backend == "ref", telemetry=tcfg, setup=setup,
+            num_pages=65, max_rows=PAGED_ROWS, prefill_chunk=64,
+            prefix_cache=True)
+        return eng, done, wall, gaps
+
+    for label, fn, n, stochastic in (
+            ("slot run", slot, SERVE_REQUESTS, SERVE_STOCHASTIC),
+            ("paged run (b)", paged, PAGED_REQUESTS, PAGED_STOCHASTIC)):
+        eng, done, _, launches = run(label, "auto",
+                                     lambda st, fn=fn: fn(st, "auto"))
+        ref_eng, ref_done, gaps, _ = run(label, "ref",
+                                         lambda st, fn=fn: fn(st, "ref"))
+        check_served(done, cfg, n)
+        check_served(ref_done, cfg, n)
+        steps = eng.stats["decode_steps"]
+        want = {"gated_row_matmul_cuda": (7 * cfg.n_layers + 1) * steps,
+                "fused_matmul_counters_cuda": 2 * steps,
+                "fused_paged_attention_cuda": (cfg.n_layers * steps
+                                               if label.startswith("paged")
+                                               else 0)}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{label} with telemetry: launches "
+                                 f"{launches}, expected {want}")
+        compare_runs(done, ref_done, gaps, stochastic,
+                     f"{label}'s plain run with telemetry")
+        equal = {u for u, r in done.items()
+                 if r.generated == ref_done[u].generated}
+        out[label] = compare_telemetry(eng, done, ref_eng, ref_done, equal,
+                                       f"{label} with telemetry")
+        del eng, ref_eng
+        gc.collect()
+
+    for name, sc in sorted(SCENARIOS.items()):
+        runs = {}
+        for backend in ("auto", "ref"):
+            torch.cuda.synchronize()
+            for f in counted:
+                f.launches = 0
+            t0 = time.perf_counter()
+            res = run_scenario(name, tcfg=TelemetryConfig(
+                window=sc.window, actuate=True), device="cuda",
+                kernel_backend=backend)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {f.__name__: f.launches for f in counted}
+            if (launches["gated_row_matmul_cuda"] > 0) != \
+                    (backend == "auto"):
+                raise AssertionError(f"scenario {name} {backend}: "
+                                     f"launches {launches}")
+            runs[backend] = res
+            eng = res["engine"]
+            out[f"scenario {name} {backend}"] = {
+                "wall_s": wall, "tokens": eng.stats["tokens"],
+                "decode_steps": eng.stats["decode_steps"],
+                "launches": launches}
+            log(f"scenario {name!r} ({sc.arch} smoke, float32, window "
+                f"{sc.window}, actuated, kernel_backend={backend!r}): "
+                f"{len(res['finished'])} requests, {eng.stats['tokens']} "
+                f"tokens in {wall:.3f} s; launches {json.dumps(launches)}")
+        res, ref = runs["auto"], runs["ref"]
+        done = {r.uid: r for r in res["finished"]}
+        ref_done = {r.uid: r for r in ref["finished"]}
+        equal = {u for u, r in done.items()
+                 if r.generated == ref_done[u].generated}
+        if len(equal) < len(done):
+            log(f"scenario {name!r}: {len(done) - len(equal)} requests' "
+                f"tokens part from the plain run's")
+        out[f"scenario {name}"] = compare_telemetry(
+            res["engine"], done, ref["engine"], ref_done, equal,
+            f"scenario {name!r}")
+        if name == "shift":
+            tl = res["timeline"]
+            prefill = [f for f in tl.flip_events
+                       if f.site.startswith("prefill/")]
+            if not prefill or any(
+                    (f.old, f.new) != ("mant-exp", "bic-west")
+                    or not f.margin > 0 or f.window < 1 for f in prefill):
+                raise AssertionError(f"scenario 'shift' did not flip its "
+                                     f"prefill sites mant-exp -> bic-west: "
+                                     f"{tl.flip_events}")
+            log(f"scenario 'shift' flips its prefill sites mant-exp -> "
+                f"bic-west at windows "
+                f"{sorted({f.window for f in prefill})}")
     return out
 
 
@@ -2828,6 +3256,7 @@ def main() -> int:
     err = max(err, e)
     cfg, params, eng, slot_done, serve_launches = phase_serving()
     paged = phase_paged_serving(cfg, params, eng, slot_done)
+    telemetry = phase_telemetry(cfg, params)
     quick_launches, e5, e6 = phase_quickstart()
     site_pass = phase_resnet_sites()
     err5 = max(err5, e5, site_pass["err5"])
@@ -2899,6 +3328,8 @@ def main() -> int:
                          for a, z in zoo.items()},
         "launches_zoo_serving": zoo_launches(zoo_serving,
                                              "fused_counters_cuda"),
+        "launches_telemetry": telemetry_launches(telemetry,
+                                                 "fused_counters_cuda"),
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",
@@ -2914,6 +3345,8 @@ def main() -> int:
             for a, z in zoo.items()},
         "launches_zoo_serving": zoo_launches(zoo_serving,
                                              "gated_row_matmul_cuda"),
+        "launches_telemetry": telemetry_launches(telemetry,
+                                                 "gated_row_matmul_cuda"),
         "zoo": zoo,
         "zoo_serving": zoo_serving,
         "max_abs_err": err2,
@@ -2948,6 +3381,9 @@ def main() -> int:
                    "walk), device time (profiler); events_ms by CUDA events",
         "launches_zoo_serving": zoo_launches(zoo_serving,
                                              "fused_matmul_counters_cuda"),
+        "launches_telemetry": telemetry_launches(
+            telemetry, "fused_matmul_counters_cuda"),
+        "telemetry": telemetry,
         "ms_by_kernel": k3["ms_by_kernel"],
         "k2_at_product_shape_ms": k3["k2_at_product_shape_ms"],
         "shape": k3["shape"],
@@ -2960,6 +3396,10 @@ def main() -> int:
         "replaces": K4_REPLACES,
         "launches": paged["b"]["launches"],
         "launches_runs": {k: paged[k]["launches"] for k in "abc"},
+        "launches_telemetry": telemetry_launches(
+            telemetry, "fused_paged_attention_cuda"),
+        "launches_zoo_serving": zoo_launches(zoo_serving,
+                                             "fused_paged_attention_cuda"),
         "decode_steps_runs": {k: paged[k]["decode_steps"] for k in "abc"},
         "max_abs_err": err4,
         "max_rel_err": rel4,

@@ -24,12 +24,17 @@ Modes (one code path each, shared weights):
              different positions. The port updates every state in place
              (the JAX package returns new arrays that XLA aliases to the
              donated ones).
-  paged   -- ``pages [B, MP]`` given (``attn`` only): the states are page
-             pools ``[P, ps, Hkv, D]``; each row writes this step's keys
-             and values into its pages through its table (in place), then
-             attends through the table: S = 1 by the paged decode attention
-             (K4 on the card), a prefill chunk (S > 1) by the gather and
-             :func:`.attention.paged_chunk_attention`.
+  paged   -- ``pages [B, MP]`` given (``attn`` and ``mla``): the states
+             are page pools, ``[P, ps, Hkv, D]`` (``attn``) or the latent
+             pools ``ckv [P, ps, r]`` and ``kr [P, ps, dr]`` (``mla``);
+             each row writes this step's entries into its pages through
+             its table (in place), then attends through the table. For
+             ``attn``, S = 1 by the paged decode attention (K4 on the
+             card), a prefill chunk (S > 1) by the gather and
+             :func:`.attention.paged_chunk_attention`; ``mla`` gathers its
+             pages and runs the absorbed decode under a per-query causal
+             mask, for S = 1 and chunks alike, as the JAX package does
+             (K4 is ``attn``'s alone).
 
 Which products go through the gated matmul (K2 in decode) follows the
 JAX package exactly: the projections it runs through ``models.matmul``
@@ -294,12 +299,13 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     """Multi-head Latent Attention of one block: the parallel path with
     per-head keys and values expanded from the latent, or the absorbed
     decode over the latent cache ``(ckv [B, T, r], kr [B, T, dr])``
-    (written in place). The prefill state is the latent cache padded to
-    ``cache_len``."""
-    if pages is not None:
-        raise NotImplementedError(
-            "paged MLA is not ported yet: ROADMAP queue 1 step 4 (paged "
-            "MLA serving)")
+    (written in place). With ``pages [B, MP]`` the state is the latent
+    page pools ``(ckv [P, ps, r], kr [P, ps, dr])``: this step's entries
+    are scattered into each row's pages (in place), the pages gathered to
+    a dense view, and the absorbed decode masked per query (``kpos <=
+    position``), which for S = 1 is the dense decode mask and for S > 1
+    serves a chunked prefill. The prefill state is the latent cache
+    padded to ``cache_len``."""
     mla = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -320,13 +326,26 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     kr = L.apply_rope(kr, positions, cfg.rope_theta)
 
     if state is not None:                       # ---- absorbed decode
-        ckv_c, kr_c = state
-        bpos = _decode_batch_pos(cfg, positions)
-        rows = torch.arange(b, device=x.device)
-        ckv_c[rows, bpos] = ckv[:, 0].to(ckv_c.dtype)
-        kr_c[rows, bpos] = kr[:, 0, 0].to(kr_c.dtype)
-        kpos = torch.arange(ckv_c.shape[1], device=x.device)
-        mask = (kpos[None, :] <= bpos[:, None])[:, None, None, :]
+        if pages is not None:                   # paged: pool-backed cache
+            ckv_p, kr_p = state                 # [P, ps, r], [P, ps, dr]
+            pg, off = _page_targets(pages, positions, ckv_p.shape[1])
+            ckv_p[pg, off] = ckv.to(ckv_p.dtype)
+            kr_p[pg, off] = kr[:, :, 0].to(kr_p.dtype)
+            ckv_c = gather_pages(ckv_p, pages)
+            kr_c = gather_pages(kr_p, pages)
+            kpos = torch.arange(ckv_c.shape[1], device=x.device)
+            # per-query causal mask [B, 1, S, T]; for S == 1 it is the
+            # dense decode mask below
+            mask = (kpos[None, None, :]
+                    <= positions.long()[:, :, None])[:, None]
+        else:
+            ckv_c, kr_c = state
+            bpos = _decode_batch_pos(cfg, positions)
+            rows = torch.arange(b, device=x.device)
+            ckv_c[rows, bpos] = ckv[:, 0].to(ckv_c.dtype)
+            kr_c[rows, bpos] = kr[:, 0, 0].to(kr_c.dtype)
+            kpos = torch.arange(ckv_c.shape[1], device=x.device)
+            mask = (kpos[None, :] <= bpos[:, None])[:, None, None, :]
         q_eff = ein("bshe,rhe->bshr", q_nope, p["w_uk"])
         scores = (ein("bshr,btr->bhst", q_eff, ckv_c)
                   + ein("bshe,bte->bhst", q_rope, kr_c)).float()

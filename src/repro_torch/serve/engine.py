@@ -27,6 +27,14 @@ admission (K1), its embedded decode inputs each sampled step (K3) --
 streamed against representative layer-0 weights, and retirement attaches
 a :class:`RequestPowerReport`.
 
+Telemetry (``ServeConfig.telemetry``, a
+:class:`repro_torch.serve.telemetry.TelemetryConfig`; it needs
+``power_monitor``): a :class:`repro_torch.serve.telemetry.ServeTelemetry`
+hangs off the accountant's retirement hook, windows the retirement
+stream and re-selects each site's design per window; with
+``actuate=True`` the engine commits the selector's flips into the
+accountant at the next step boundary. ``telemetry_report()`` reads it.
+
 ``ServeConfig.kernel_backend`` selects the kernels: ``"auto"`` (the
 Hopper kernels for CUDA tensors, their plain versions on the CPU),
 ``"cuda"``, or ``"ref"`` (the plain versions on any device). The engine
@@ -79,10 +87,21 @@ class ServeConfig:
     # set, max_slots gives way to paging.max_rows and cache_len is the
     # per-request position horizon, not a per-request reservation
     paging: object | None = None
-    # not ported yet: telemetry (ROADMAP step 11); ServeEngine refuses it
+    # windowed telemetry and online per-site design re-selection (a
+    # telemetry.TelemetryConfig); needs power_monitor. None = off. With
+    # TelemetryConfig(actuate=True) committed flips are applied to the
+    # accountant between steps
     telemetry: object | None = None
 
     def __post_init__(self):
+        if self.telemetry is not None and not self.power_monitor:
+            raise ValueError(
+                "ServeConfig.telemetry requires ServeConfig."
+                "power_monitor=True: the windowed registry consumes the "
+                "power accountant's retirement records, so telemetry "
+                "without the monitor would observe nothing. Set "
+                "power_monitor=True alongside telemetry=TelemetryConfig"
+                "(...), or drop the telemetry config.")
         if self.kernel_backend not in BACKENDS:
             raise ValueError(f"unknown kernel_backend "
                              f"{self.kernel_backend!r}; expected one of "
@@ -118,13 +137,10 @@ class ServeEngine:
 
     def __init__(self, params: dict, cfg: ArchConfig, scfg: ServeConfig,
                  mesh=None):
-        missing = [name for name, v in (("mesh", mesh),
-                                        ("telemetry", scfg.telemetry))
-                   if v is not None]
-        if missing:
+        if mesh is not None:
             raise NotImplementedError(
-                f"{', '.join(missing)} not ported yet: the port serves on "
-                f"one device without telemetry (ROADMAP steps 11 and 13)")
+                "mesh not ported yet: the port serves on one device "
+                "(ROADMAP queue 1 step 7)")
         if cfg.inputs != "tokens":
             raise ValueError(f"ServeEngine serves token LMs; {cfg.name} "
                              f"has inputs={cfg.inputs!r}")
@@ -153,6 +169,13 @@ class ServeEngine:
                                            scfg.power_sample_every,
                                            kernel_backend=scfg.kernel_backend)
                            if scfg.power_monitor else None)
+        self.telemetry = None
+        if scfg.telemetry is not None:     # ServeConfig ensured the monitor
+            from .telemetry import ServeTelemetry
+            self.telemetry = ServeTelemetry(scfg.telemetry, scfg.monitor)
+            self.accountant.retire_hooks.append(self.telemetry.on_retire)
+            if scfg.telemetry.actuate:
+                self.accountant.enable_actuation()
         self._power_weights = (lm.pick_monitor_weights(self.params, cfg)
                                if scfg.power_monitor else [])
         self.stats = {"steps": 0, "decode_steps": 0, "tokens": 0,
@@ -185,6 +208,7 @@ class ServeEngine:
     def step(self) -> list[Request]:
         """One engine iteration: admit, one shared decode, retire.
         Returns the requests retired during this step."""
+        self._apply_design_swaps()
         retired: list[Request] = []
         self._admission_phase(retired)
         live = self._decode_ready()
@@ -208,6 +232,14 @@ class ServeEngine:
             self.stats["peak_live"] = max(self.stats["peak_live"], len(live))
         self.stats["steps"] += 1
         return retired
+
+    def _apply_design_swaps(self) -> None:
+        """Commit the design flips the online selector staged since the
+        last step (``TelemetryConfig(actuate=True)``). On the host at the
+        step boundary: the swap only changes which design later
+        recordings are priced under, so no decode step sees it."""
+        if self.telemetry is not None and self.telemetry.tcfg.actuate:
+            self.telemetry.actuate_pending(self.accountant)
 
     def _admission_phase(self, retired: list[Request]) -> None:
         while self.cache.n_free and self.scheduler.n_pending:
@@ -332,8 +364,24 @@ class ServeEngine:
         if self.accountant is None:
             raise RuntimeError("power_monitor is off")
         from repro_torch.trace.report import build_report
-        return build_report(self.accountant.capture,
-                            model=f"serve/{self.cfg.name}")
+        report = build_report(self.accountant.capture,
+                              model=f"serve/{self.cfg.name}")
+        # closed-loop runs also carry the "actuated" pseudo-design: each
+        # site's traffic priced under the design active at each recording
+        self.accountant.inject_actuated(report)
+        return report
+
+    def telemetry_report(self) -> dict:
+        """Finalize and return the telemetry roll-up (windows, the flip
+        timeline, the fixed/online/oracle/actuated savings tracks);
+        requires ``ServeConfig.telemetry``. Finalizing closes open windows
+        as partial and fills the oracle track: call it once the run has
+        drained."""
+        if self.telemetry is None:
+            raise RuntimeError(
+                "telemetry is off (set ServeConfig.telemetry to a "
+                "TelemetryConfig)")
+        return self.telemetry.report()
 
     def occupancy(self) -> float:
         """Mean live slots per decode step (batch efficiency)."""

@@ -2,11 +2,13 @@
 
 The pool is ``lm.make_decode_state`` with ``batch = num_pages`` and
 ``cache_len = page_size``: per layer ``(k_pool, v_pool)``, each ``[P,
-page_size, Hkv, D]``, the slot cache's layout with pages where the slots
-were. A row's logical position ``p`` lives at ``(table[p // page_size],
-p % page_size)``; the decode step takes the tables as a ``[B, MP]`` input
-and the model writes and reads through them (see
-``models.transformer._page_targets`` and the paged decode attention).
+page_size, Hkv, D]`` (``attn``), or the latent pools ``(ckv [P,
+page_size, r], kr [P, page_size, dr])`` (``mla``) -- the slot cache's
+layout with pages where the slots were. A row's logical position ``p``
+lives at ``(table[p // page_size], p % page_size)``; the decode step
+takes the tables as a ``[B, MP]`` input and the model writes and reads
+through them (see ``models.transformer._page_targets`` and the paged
+decode attention).
 
 Page 0 is the reserved trash page: never allocated, the target of dead
 rows' decode writes and of padded chunk tails. A table entry 0 therefore
@@ -155,15 +157,17 @@ class PagedKVCache:
     # ------------------------------------------------------------ state
     def scatter_prefill(self, row: int, states1: list,
                         n_pages_used: int) -> None:
-        """Copy a dense batch-1 prefill state (``cache_len`` wide) into
-        the first ``n_pages_used`` pages of the row's table, in place."""
+        """Copy a dense batch-1 prefill state (``cache_len`` wide: ``(k,
+        v)`` or MLA's ``(ckv, kr)``) into the first ``n_pages_used`` pages
+        of the row's table, in place."""
         ps = self.page_size
         n = n_pages_used * ps
         idx = torch.from_numpy(self.tables[row, :n_pages_used]).to(
             self.device).long()
-        for (kp, vp), (k1, v1) in zip(self.states, states1):
-            kp[idx] = k1[0, :n].reshape((n_pages_used, ps) + kp.shape[2:])
-            vp[idx] = v1[0, :n].reshape((n_pages_used, ps) + vp.shape[2:])
+        for pools, dense in zip(self.states, states1):
+            for pool, d1 in zip(pools, dense):
+                pool[idx] = d1[0, :n].reshape((n_pages_used, ps)
+                                              + pool.shape[2:])
 
     def activate(self, row: int, first_token: int, prompt_len: int) -> None:
         """Prefill complete: the row joins the shared decode batch at

@@ -32,8 +32,10 @@ Power accounting stays exact under all of it:
   energies still sum to ``trace_report()``.
 
 The decode step's attention is the paged decode attention (K4 on the
-card); chunks run the gather and the plain chunk attention, as prefill
-runs plain code.
+card) for ``attn``; chunks run the gather and the plain chunk attention,
+as prefill runs plain code. MLA archs page their latent caches
+(``ckv``/``kr``) and gather them in decode and chunks alike, as the JAX
+package does: no K4 there.
 """
 from __future__ import annotations
 
@@ -93,10 +95,6 @@ class PagedServeEngine(ServeEngine):
                 f"{sorted(mixers - {'attn', 'mla'})}")
         if self.cfg.pos == "mrope":
             raise ValueError("paged serving does not support mrope")
-        if "mla" in mixers:
-            raise NotImplementedError(
-                f"{self.cfg.name}: paged MLA serving is not ported yet "
-                f"(ROADMAP queue 1 step 4)")
         self._batch = pcfg.max_rows
         self.cache = PagedKVCache(self.cfg, pcfg.max_rows,
                                   self.scfg.cache_len, pcfg.page_size,

@@ -1,9 +1,10 @@
 """Shared prompt prefixes over full KV pages: a refcounted trie.
 
-Sharing is sound at page granularity for causal caches: the K/V at
-position ``p`` depend only on tokens ``0..p``, so two prompts that agree
-on their first ``n * page_size`` tokens give the same ``n`` pages, and
-one physical copy can back both page tables. Partial pages are never
+Sharing is sound at page granularity for causal caches: the entries at
+position ``p`` (k/v for ``attn``, the latent ckv/kr for ``mla``) depend
+only on tokens ``0..p``, so two prompts that agree on their first ``n *
+page_size`` tokens give the same ``n`` pages, and one physical copy can
+back both page tables. Partial pages are never
 shared, and a request always keeps at least one unshared prompt token so
 that its own prefill has a last position to take logits from.
 

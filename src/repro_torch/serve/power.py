@@ -23,6 +23,15 @@ up to the serve-wide report exactly.
 
 With ``sample_every = k`` only every k-th decode step is streamed;
 retirement extrapolates decode energies by ``steps / sampled_steps``.
+
+Retirement also hands a :class:`RetirementRecord` -- the same per-site
+floats it books -- to every hook in ``PowerAccountant.retire_hooks``
+(the windowed telemetry of :mod:`repro_torch.serve.telemetry`). With
+:meth:`PowerAccountant.enable_actuation` each site is priced under its
+active design, which :meth:`PowerAccountant.apply_swaps` changes between
+engine steps: recordings carry the design of their swap epoch, and
+retirement adds an ``"actuated"`` energy entry pricing each epoch under
+its own design.
 """
 from __future__ import annotations
 
@@ -36,8 +45,80 @@ from repro_torch.design.evaluate import design_energy, menu_args
 from repro_torch.kernels import power_counters as pc
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.kernels.zvg_matmul import fused_matmul_counters
-from repro_torch.kernels.zvg_matmul.ref import pad_lanes
+from repro_torch.kernels.zvg_matmul.ref import pad_lanes as _pad_lanes
 from repro_torch.trace.capture import CaptureConfig, TraceCapture
+
+#: the pseudo-design that prices each recording under the design that
+#: was active when it was made (closed-loop actuation,
+#: :mod:`repro_torch.serve.telemetry`); it rides the report machinery
+#: as design selection's "selected" does
+ACTUATED = "actuated"
+
+#: components an actuated pricing carries: the monitor's energy
+#: components and the h/v pipeline toggles trace reports quote
+ACTUATED_COMPONENTS = monitor.COMPONENTS + ("h", "v")
+
+
+def _epoch_energy(design: str, counters: dict) -> dict[str, float]:
+    """Price one swap epoch's counter sub-sums under its design."""
+    comps = monitor.counters_to_energy(dict(counters)).get(design, {})
+    out = {c: float(comps.get(c, 0.0)) for c in monitor.COMPONENTS}
+    out["h"] = float(counters.get(f"h/{design}", 0.0))
+    out["v"] = float(counters.get(f"v/{design}", 0.0))
+    return out
+
+
+def actuated_site_energy(record: "SiteRecord",
+                         primary: str) -> dict[str, float]:
+    """Price one frozen site record as recorded: each swap epoch's
+    counter sub-sums under the design active when they were recorded (a
+    request that spans a swap pays the old design before it and the new
+    one after). The live accountant and every offline consumer share
+    this function and its float-addition order, so replays reproduce
+    actuated energies bit for bit. Records without epochs (schema-v1
+    dumps) price entirely under ``primary``."""
+    epochs = record.epochs or ((primary, record.counters),)
+    total: dict[str, float] | None = None
+    for design, counters in epochs:
+        e = _epoch_energy(design, counters)
+        if total is None:
+            total = e
+        else:
+            for c in total:
+                total[c] += e[c]
+    return total if total is not None else dict.fromkeys(
+        ACTUATED_COMPONENTS, 0.0)
+
+
+def actuated_stream_energy(records, primary: str) -> float:
+    """Total actuated energy (fJ) of a retirement-record stream: the
+    (site, active design) counter sub-sums are merged across the stream
+    first, then priced -- the grouping of the selector's fixed and online
+    window tracks, so on a stream without swaps the actuated total equals
+    the fixed primary's bit for bit."""
+    by_site: dict[str, dict[str, dict[str, float]]] = {}
+    for rec in records:
+        for sr in rec.sites:
+            site = by_site.setdefault(sr.site, {})
+            for design, counters in sr.epochs or ((primary, sr.counters),):
+                sub = site.setdefault(design, {})
+                for k, v in counters.items():
+                    if k == "zero_fraction":
+                        continue
+                    sub[k] = sub.get(k, 0.0) + float(v)
+    total = 0.0
+    for designs in by_site.values():
+        for design, counters in designs.items():
+            total += float(monitor.counters_to_energy(counters)
+                           .get(design, {}).get("total", 0.0))
+    return total
+
+
+def gather_local(a):
+    """The operand on the accountant's device. The JAX package gathers a
+    mesh-sharded operand here; the port serves on one device, so this is
+    the identity, kept so the accountant reads as the JAX one does."""
+    return a
 
 
 def fused_decode_supported(mcfg: monitor.MonitorConfig) -> bool:
@@ -80,7 +161,7 @@ def _ref_decode_counters(A: torch.Tensor, W: torch.Tensor,
     geom, _, wspec, nspec = _decode_menu(mcfg)
     A2, W2 = _subsample_decode(A, W, mcfg)
     lanes_n = -(-W2.shape[1] // geom.cols) * geom.cols
-    nrows = pc.edge_counters(pad_lanes(to_bits(W2), lanes_n), nspec,
+    nrows = pc.edge_counters(_pad_lanes(to_bits(W2), lanes_n), nspec,
                              backend=mcfg.backend)
     x_w = torch.zeros(A2.shape + (geom.rows,), dtype=torch.int32,
                       device=A2.device)
@@ -135,6 +216,68 @@ def _rows_counters(A: torch.Tensor, W: torch.Tensor,
                *monitor.subsample_operands(a[None], W, mcfg), mcfg)
            for a in A]
     return {k: torch.tensor([float(p[k]) for p in per]) for k in per[0]}
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteRecord:
+    """One monitored site's frozen share of one retired request: the
+    ``(site, kind, shape, counters)`` the accountant books into the
+    serve-wide capture at retirement -- the same floats in the same
+    order -- so replaying site records through ``record_counters``
+    reproduces the capture bit for bit."""
+    site: str
+    kind: str
+    shape: tuple[int, ...]
+    counters: dict           # flat counters with "zero_fraction"
+    #: the swap-epoch split of ``counters``: ``((design, sub_counters),
+    #: ...)``, each sub-dict the recordings made while that design was
+    #: the site's active choice, summed in the float-addition order of
+    #: ``counters`` (one epoch's floats equal ``counters`` bit for bit).
+    #: Empty on records dumped before actuation existed (schema v1).
+    epochs: tuple = ()
+
+    def to_json_dict(self) -> dict:
+        return {"site": self.site, "kind": self.kind,
+                "shape": list(self.shape), "counters": dict(self.counters),
+                "epochs": [[d, dict(c)] for d, c in self.epochs]}
+
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "SiteRecord":
+        return cls(site=d["site"], kind=d["kind"],
+                   shape=tuple(d["shape"]), counters=dict(d["counters"]),
+                   epochs=tuple((e[0], dict(e[1]))
+                                for e in d.get("epochs", [])))
+
+
+@dataclasses.dataclass(frozen=True)
+class RetirementRecord:
+    """What one retirement adds to the serve-wide accounting, as plain
+    data: the unit the windowed telemetry registry partitions. Handed to
+    every hook in ``PowerAccountant.retire_hooks`` once its counters are
+    booked into the capture, so window sums and ``trace_report()`` are
+    two views of one retirement stream."""
+    uid: int
+    prompt_tokens: int
+    new_tokens: int
+    decode_steps: int
+    sampled_steps: int
+    sites: tuple[SiteRecord, ...]
+
+    def to_json_dict(self) -> dict:
+        return {"uid": self.uid, "prompt_tokens": self.prompt_tokens,
+                "new_tokens": self.new_tokens,
+                "decode_steps": self.decode_steps,
+                "sampled_steps": self.sampled_steps,
+                "sites": [s.to_json_dict() for s in self.sites]}
+
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "RetirementRecord":
+        return cls(uid=d["uid"], prompt_tokens=d["prompt_tokens"],
+                   new_tokens=d["new_tokens"],
+                   decode_steps=d["decode_steps"],
+                   sampled_steps=d["sampled_steps"],
+                   sites=tuple(SiteRecord.from_json_dict(s)
+                               for s in d["sites"]))
 
 
 @dataclasses.dataclass
@@ -192,12 +335,18 @@ class _SiteRec:
     def __init__(self, shape: tuple[int, int, int, int]):
         self.shape = shape
         self.counters: dict[str, float] = {}
+        # design -> the counters added while it was the site's active
+        # design (swap epochs), summed in the order of ``counters``: a
+        # life under one design has ``counters`` bit for bit here
+        self.priced: dict[str, dict[str, float]] = {}
         self.zf_sum = 0.0
         self.zf_n = 0
 
-    def add(self, counters: dict, zf: float):
+    def add(self, counters: dict, zf: float, design: str):
+        sub = self.priced.setdefault(design, {})
         for k, v in counters.items():
             self.counters[k] = self.counters.get(k, 0.0) + v
+            sub[k] = sub.get(k, 0.0) + v
         self.zf_sum += zf
         self.zf_n += 1
 
@@ -228,6 +377,11 @@ class PowerAccountant:
     backend, K1 by default) and the plain versions on CPU tensors;
     ``"cuda"`` and ``"ref"`` force the kernels or the plain versions for
     both, ``"ref"`` with the plain decode producer.
+
+    ``retire_hooks`` receive each retirement's :class:`RetirementRecord`
+    after its counters are booked. :meth:`enable_actuation` turns on the
+    per-site active designs of :meth:`apply_swaps` and the
+    ``"actuated"`` energies.
     """
 
     def __init__(self, mcfg: monitor.MonitorConfig = monitor.DEFAULT_MONITOR,
@@ -248,6 +402,83 @@ class PowerAccountant:
         self._slots: dict[int, _SlotAcc] = {}
         # serve-wide registry (paper-style report over ALL traffic)
         self.capture = TraceCapture(CaptureConfig(monitor=mcfg))
+        # each called with every retirement's record, after its counters
+        # were booked into the capture (the telemetry registry's feed)
+        self.retire_hooks: list = []
+        # closed-loop actuation: the per-site active design (full
+        # "prefill/..."/"decode/..." names; absent sites price under the
+        # primary), the swap epochs, and the actuated totals -- request
+        # major (retirement order, the sum of the requests' actuated
+        # energies bit for bit) and site major (for trace reports)
+        self.actuation_enabled = False
+        self.swap_epoch = 0
+        self._site_design: dict[str, str] = {}
+        self.swap_log: list[tuple[int, dict[str, str]]] = []
+        self._act_totals: dict[str, float] = dict.fromkeys(
+            ACTUATED_COMPONENTS, 0.0)
+        self._act_sites: dict[str, dict[str, float]] = {}
+
+    # ----------------------------------------------------------- actuation
+    def enable_actuation(self) -> None:
+        """Price every recording under the design active when it is made:
+        each retirement gains an ``"actuated"`` energy entry, and
+        :meth:`apply_swaps` becomes legal. Enable before any traffic so
+        the actuated track covers every retired request."""
+        if ACTUATED in self.mcfg.design_names:
+            raise ValueError(
+                f"design name {ACTUATED!r} is reserved for the actuated "
+                f"pricing track; rename the configured design")
+        self.actuation_enabled = True
+
+    def design_for(self, site: str) -> str:
+        """The design now pricing ``site`` (its full ``prefill/...`` or
+        ``decode/...`` name)."""
+        return self._site_design.get(site, self.mcfg.primary_design)
+
+    def apply_swaps(self, mapping: dict[str, str]) -> int:
+        """Swap the active design of the given sites (full site name ->
+        design) at once. Host bookkeeping only, between engine steps:
+        recordings already made keep their design, later ones price under
+        the new one. Returns the swap epoch, unchanged when nothing
+        changes."""
+        if not self.actuation_enabled:
+            raise RuntimeError(
+                "apply_swaps requires enable_actuation() first")
+        known = set(self.mcfg.design_names)
+        bad = sorted(set(mapping.values()) - known)
+        if bad:
+            raise KeyError(f"unknown designs in swap: {bad}; "
+                           f"configured: {sorted(known)}")
+        changed = {s: d for s, d in mapping.items()
+                   if self.design_for(s) != d}
+        if not changed:
+            return self.swap_epoch
+        self.swap_epoch += 1
+        self._site_design.update(changed)
+        self.swap_log.append((self.swap_epoch, changed))
+        return self.swap_epoch
+
+    def actuated_totals(self) -> dict[str, float]:
+        """Serve-wide actuated energy components, summed request by
+        request: bit for bit the sum of every retired request's
+        ``energy["actuated"]`` in retirement order."""
+        return dict(self._act_totals)
+
+    def inject_actuated(self, report) -> None:
+        """Add the ``"actuated"`` pseudo-design to a serve-wide
+        :class:`repro_torch.trace.report.TraceReport` in place, from the
+        site-major actuated sums (the floats of the per-request reports,
+        grouped by site in retirement order)."""
+        if not self.actuation_enabled:
+            return
+        for s in report.sites:
+            tot = self._act_sites.get(
+                s.name, dict.fromkeys(ACTUATED_COMPONENTS, 0.0))
+            s.designs[ACTUATED] = {"total": tot["total"],
+                                   "streaming": tot["streaming"],
+                                   "h": tot["h"], "v": tot["v"]}
+        if ACTUATED not in report.designs:
+            report.designs = tuple(report.designs) + (ACTUATED,)
 
     # ----------------------------------------------------------- lifecycle
     def begin(self, slot: int, uid: int, prompt_tokens: int) -> None:
@@ -280,20 +511,44 @@ class PowerAccountant:
         scale = acc.decode_steps / max(acc.sampled_steps, 1)
         total: dict[str, float] = {}
         zf_sum = zf_n = 0.0
-        for kind, recs in (("prefill", acc.prefill), ("decode", acc.decode)):
-            for site, rec in recs.items():
-                counters, shape = rec.counters, rec.shape
-                if kind == "decode":
-                    counters = {k: v * scale for k, v in counters.items()}
-                    # MACs extrapolate with the energies
-                    shape = (acc.decode_steps,) + rec.shape[1:]
-                for k, v in counters.items():
-                    total[k] = total.get(k, 0.0) + v
-                zf_sum += rec.zf_sum
-                zf_n += rec.zf_n
-                self.capture.record_counters(
-                    site, "dot_general", shape,
-                    {**counters, "zero_fraction": rec.zf_mean})
+        site_records: list[SiteRecord] = []
+        for site, rec in acc.prefill.items():
+            for k, v in rec.counters.items():
+                total[k] = total.get(k, 0.0) + v
+            zf_sum += rec.zf_sum
+            zf_n += rec.zf_n
+            site_records.append(SiteRecord(
+                site, "dot_general", rec.shape,
+                {**rec.counters, "zero_fraction": rec.zf_mean},
+                epochs=tuple((d, dict(sub))
+                             for d, sub in rec.priced.items())))
+        for site, rec in acc.decode.items():
+            scaled = {k: v * scale for k, v in rec.counters.items()}
+            for k, v in scaled.items():
+                total[k] = total.get(k, 0.0) + v
+            zf_sum += rec.zf_sum
+            zf_n += rec.zf_n
+            # MACs extrapolate with the energies: all decode steps count
+            shape = (acc.decode_steps,) + rec.shape[1:]
+            site_records.append(SiteRecord(
+                site, "dot_general", shape,
+                {**scaled, "zero_fraction": rec.zf_mean},
+                # epoch sub-sums extrapolate as the totals do: the same
+                # float scaled by the same factor
+                epochs=tuple((d, {k: v * scale for k, v in sub.items()})
+                             for d, sub in rec.priced.items())))
+        # one frozen record set, booked into the capture and handed to
+        # every hook: the serve-wide report and any windowed view sum the
+        # same floats
+        for sr in site_records:
+            self.capture.record_counters(sr.site, sr.kind, sr.shape,
+                                         sr.counters)
+        retirement = RetirementRecord(
+            uid=acc.uid, prompt_tokens=acc.prompt_tokens,
+            new_tokens=new_tokens, decode_steps=acc.decode_steps,
+            sampled_steps=acc.sampled_steps, sites=tuple(site_records))
+        for hook in self.retire_hooks:
+            hook(retirement)
         energy = monitor.counters_to_energy(total)
         # every configured design, all-zero for a request that retired
         # with no sampled records
@@ -301,6 +556,21 @@ class PowerAccountant:
             comps = energy.setdefault(name, {})
             for c in monitor.COMPONENTS:
                 comps.setdefault(c, 0.0)
+        if self.actuation_enabled:
+            # the request priced as recorded (each epoch under its
+            # design), added once to the request-major totals and per
+            # site to the site-major ones
+            req_e = dict.fromkeys(ACTUATED_COMPONENTS, 0.0)
+            for sr in site_records:
+                e = actuated_site_energy(sr, self.mcfg.primary_design)
+                site_tot = self._act_sites.setdefault(
+                    sr.site, dict.fromkeys(ACTUATED_COMPONENTS, 0.0))
+                for c in ACTUATED_COMPONENTS:
+                    req_e[c] += e[c]
+                    site_tot[c] += e[c]
+            for c in ACTUATED_COMPONENTS:
+                self._act_totals[c] += req_e[c]
+            energy[ACTUATED] = {c: req_e[c] for c in monitor.COMPONENTS}
         return RequestPowerReport(
             uid=acc.uid, prompt_tokens=acc.prompt_tokens,
             new_tokens=new_tokens, decode_steps=acc.decode_steps,
@@ -315,6 +585,7 @@ class PowerAccountant:
                        weight: torch.Tensor, site: str) -> None:
         """One prefill matmul of the slot's request: ``acts [..., K]`` (its
         real prompt rows only), ``weight [K, N]``."""
+        acts, weight = gather_local(acts), gather_local(weight)
         A = acts.reshape(-1, acts.shape[-1])
         m = A.shape[0]
         # rows pre-sampled to a power-of-two budget, as the JAX package
@@ -328,10 +599,18 @@ class PowerAccountant:
         zf = counters.pop("zero_fraction")
         factor = monitor.sampled_fraction_scale(
             m, A.shape[1], weight.shape[1], self.mcfg, sampled_m=ms)
+        acc = self._slots[slot]
         name = f"prefill/{site}"
-        rec = self._slots[slot].prefill.setdefault(
-            name, _SiteRec((1, m, A.shape[1], weight.shape[1])))
-        rec.add({k: v * factor for k, v in counters.items()}, zf)
+        rec = acc.prefill.get(name)
+        if rec is None:
+            rec = acc.prefill[name] = _SiteRec(
+                (1, m, A.shape[1], weight.shape[1]))
+        else:
+            # a re-prefill after preemption streams more rows through the
+            # site: the booked MAC extent grows with the energy
+            rec.shape = (1, rec.shape[1] + m, rec.shape[2], rec.shape[3])
+        rec.add({k: v * factor for k, v in counters.items()}, zf,
+                self.design_for(name))
 
     def tick(self, slots: list[int]) -> bool:
         """Advance live slots by one decode step; True when this step is
@@ -353,6 +632,7 @@ class PowerAccountant:
         """One decode-step matmul across the whole batch: ``acts [B, K]``
         (a row per KV slot), ``weight [K, N]``. Only rows in ``slots``
         that are due this step are credited."""
+        acts, weight = gather_local(acts), gather_local(weight)
         if self._split:
             if self._fused:
                 wc, wz, nc, nz, _ = _fused_decode_counters(
@@ -377,7 +657,8 @@ class PowerAccountant:
             zf = row.pop("zero_fraction")
             rec = acc.decode.setdefault(
                 name, _SiteRec((1, 1, acts.shape[1], weight.shape[1])))
-            rec.add({k: v * factor for k, v in row.items()}, zf)
+            rec.add({k: v * factor for k, v in row.items()}, zf,
+                    self.design_for(name))
 
     def mark_sampled(self, slots: list[int]) -> None:
         """Book that this step's records covered these slots (once per

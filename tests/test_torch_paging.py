@@ -55,14 +55,26 @@ def _prompts(n, seed, lo=2, hi=24):
             for _ in range(n)]
 
 
+_MODELS: dict = {}
+
+
+def _model(arch):
+    """``(jax cfg, jax params, cfg, params)`` at smoke size, float32, on
+    the JAX package's weights; built once per arch."""
+    if arch not in _MODELS:
+        jcfg = JSMOKES[arch].with_(compute_dtype="float32")
+        cfg = SMOKES[arch].with_(compute_dtype="float32")
+        jparams = jlm.init_model(jax.random.key(0), jcfg)
+        tree = jax.tree.map(lambda p: np.asarray(p.value), jparams,
+                            is_leaf=is_param)
+        _MODELS[arch] = jcfg, jparams, cfg, convert.params_from_jax(tree,
+                                                                    cfg)
+    return _MODELS[arch]
+
+
 @pytest.fixture(scope="module")
 def model():
-    jcfg = JSMOKES[ARCH].with_(compute_dtype="float32")
-    cfg = SMOKES[ARCH].with_(compute_dtype="float32")
-    jparams = jlm.init_model(jax.random.key(0), jcfg)
-    tree = jax.tree.map(lambda p: np.asarray(p.value), jparams,
-                        is_leaf=is_param)
-    return jcfg, jparams, cfg, convert.params_from_jax(tree, cfg)
+    return _model(ARCH)
 
 
 def _paged_cfg(rows=3, pages=64, chunk=0, prefix=False, classes=(),
@@ -146,12 +158,33 @@ CASES = {
                  "ref"),
     "cancel": (dict(pages=7), _cancel, "ref"),
 }
+#: paged MLA (the latent caches ckv/kr in pages, gathered for the
+#: absorbed decode): 5 prompts through 3 rows with ample pages, and
+#: chunked prefill with one row -- with several rows the JAX engine's
+#: chunked runs part from its own slot runs (ROADMAP fault 5), so those
+#: are held against the port's own runs in
+#: test_chunked_mla_under_concurrency
+MLA_ARCHS = ("minicpm3-4b", "deepseek-v2-lite-16b")
+for _arch in MLA_ARCHS:
+    # the JAX engine's Pallas kernels in interpret mode on one arch, its
+    # plain path on the other (bitwise equal on the CPU, its contract)
+    CASES[f"{_arch} ample"] = (
+        dict(), _simple(_prompts(5, seed=11)),
+        "pallas" if _arch == "minicpm3-4b" else "ref", _arch)
+    CASES[f"{_arch} chunked"] = (
+        dict(rows=1, chunk=8), _simple(_prompts(3, seed=12, lo=18, hi=40)),
+        "ref", _arch)
+    CASES[f"{_arch} prefix"] = (
+        dict(rows=3, prefix=True),
+        _simple([_SHARED + t for t in _prompts(4, seed=13, lo=4, hi=9)]),
+        "ref", _arch)
 
 
 @pytest.fixture(scope="module", params=list(CASES))
-def against_jax(request, model):
+def against_jax(request):
+    paging, scenario, jbackend, *arch = CASES[request.param]
+    model = _model(arch[0] if arch else ARCH)
     jcfg, jparams, cfg, params = model
-    paging, scenario, jbackend = CASES[request.param]
     jeng = JServeEngine(jparams, jcfg, JServeConfig(
         cache_len=CACHE_LEN, power_monitor=True, kernel_backend=jbackend,
         paging=_paged_cfg(**paging, jax_side=True)))
@@ -182,10 +215,10 @@ def test_paged_engine_matches_jax(against_jax):
     # each case exercises what it is named for
     want = {"chunked": "chunk_calls", "prefix": "prefix_hit_requests",
             "preemption": "preemptions", "priority": "preemptions",
-            "cancel": "preemptions"}.get(case)
+            "cancel": "preemptions"}.get(case.split()[-1])
     if want:
         assert eng.stats[want] > 0
-    if case == "prefix":
+    if case.endswith("prefix"):
         # first payer: reusers pay only their computed suffix
         e = {u: done[u].power.energy["baseline"]["total"] for u in done}
         assert all(e[u] < e[min(done)] for u in done if u != min(done))
@@ -196,6 +229,11 @@ def test_paged_engine_matches_jax(against_jax):
     assert eng.cache.n_live == 0
     assert eng.cache.n_free_pages + cached == eng.cache.num_pages - 1
     rep = eng.trace_report()
+    # the booked MAC extents too: a re-prefill after preemption grows its
+    # prefill sites' (ROADMAP fault 10)
+    assert [(s.name, s.shape, s.calls, s.macs) for s in rep.sites] == \
+        [(s.name, tuple(s.shape), s.calls, s.macs)
+         for s in jeng.trace_report().sites]
     booked = [r.power for r in done.values() if r.power is not None]
     for design in ("baseline", "proposed"):
         np.testing.assert_allclose(
@@ -336,6 +374,29 @@ def test_chunked_prefill_matches_dense_and_keeps_rows_out(model):
     # a row mid-prefill sat beside a decode step, through an all-trash
     # table (its pages are not written)
     assert seen and all(seen)
+
+
+@pytest.mark.parametrize("arch", MLA_ARCHS)
+def test_chunked_mla_under_concurrency(arch):
+    """Chunked MLA prefill beside decoding rows (3 rows, chunks of 8),
+    held against the port's own runs: the dense (unchunked) paged run on
+    the dense-FFN arch, the one-row chunked run on the MoE arch (the
+    MoE's capacity is set per call, so a chunk drops other tokens than a
+    whole prompt does). Rows mid-prefill stay out of the decode step."""
+    model = _model(arch)
+    prompts = _prompts(4, seed=18, lo=18, hi=40)
+    eng = _port(model, _paged_cfg(rows=3, chunk=8), power_monitor=True)
+    chunked = _drain(eng, prompts)
+    assert eng.stats["chunk_calls"] >= 3 * len(prompts)
+    assert eng.stats["peak_admitted"] > 1
+    if model[2].moe is None:
+        want = _drain(_port(model, _paged_cfg(rows=3)), prompts)
+    else:
+        want = _drain(_port(model, _paged_cfg(rows=1, chunk=8)), prompts)
+    assert ({u: r.generated for u, r in chunked.items()}
+            == {u: r.generated for u, r in want.items()})
+    cached = len(eng.prefix) if eng.prefix is not None else 0
+    assert eng.cache.n_free_pages + cached == eng.cache.num_pages - 1
 
 
 def test_class_scheduler_admits_in_jax_order():

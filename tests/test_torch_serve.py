@@ -26,14 +26,17 @@ import torch
 from repro.configs import SMOKES as JSMOKES
 from repro.models import lm as jlm
 from repro.models.layers import is_param
+from repro.serve import PagingConfig as JPagingConfig
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeEngine as JServeEngine
+from repro.serve import TelemetryConfig as JTelemetryConfig
 from repro_torch.configs import SMOKES
 from repro_torch.core import monitor
 from repro_torch.kernels.zvg_matmul import kernel as kz
 from repro_torch.models import convert, lm
 from repro_torch.serve import (PagedServeEngine, PagingConfig,
-                               SamplingParams, ServeConfig, ServeEngine, power)
+                               SamplingParams, ServeConfig, ServeEngine,
+                               TelemetryConfig, power)
 
 ARCH = "qwen1.5-0.5b"
 CACHE_LEN = 48
@@ -240,8 +243,14 @@ def test_cpu_run_launches_no_kernel_and_config_is_checked(model):
         ServeConfig(kernel_backend="pallas", device="cpu")
     assert isinstance(_engine(model, paging=PagingConfig(page_size=8)),
                       PagedServeEngine)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(model, telemetry=object())
+    # telemetry needs the power monitor, refused with the JAX message
+    with pytest.raises(ValueError, match="power_monitor=True") as ours:
+        _engine(model, telemetry=TelemetryConfig())
+    with pytest.raises(ValueError) as theirs:
+        JServeConfig(telemetry=JTelemetryConfig())
+    assert str(ours.value) == str(theirs.value)
+    assert _engine(model, telemetry=TelemetryConfig(),
+                   power_monitor=True).telemetry is not None
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(model[3], model[2], ServeConfig(device="cpu"),
                     mesh=object())
@@ -260,11 +269,16 @@ def test_serve_config_defaults_to_the_card():
 
 
 # ------------------------------------------------------ the rest of the zoo
-#: the token archs of the rest of the zoo the slot engine serves: MLA
+#: the token archs of the zoo the slot engine serves beyond Qwen: the
+#: dense and MoE families (Granite, DeepSeek-67B, Phi-3.5-MoE), MLA
 #: (pad-safe, prompts right-padded to buckets), RG-LRU with local
 #: attention and xLSTM (prefilled at the exact prompt length)
-ZOO_SERVED = ("deepseek-v2-lite-16b", "minicpm3-4b", "recurrentgemma-9b",
+ZOO_SERVED = ("granite-3-2b", "deepseek-67b", "phi3.5-moe-42b-a6.6b",
+              "deepseek-v2-lite-16b", "minicpm3-4b", "recurrentgemma-9b",
               "xlstm-1.3b")
+#: those the paged engine serves too (position-masked caches only)
+ZOO_PAGED = ("granite-3-2b", "deepseek-67b", "phi3.5-moe-42b-a6.6b",
+             "deepseek-v2-lite-16b", "minicpm3-4b")
 
 
 def _zoo_model(arch):
@@ -280,7 +294,9 @@ def _zoo_model(arch):
 def test_zoo_archs_serve_as_the_jax_engine(arch):
     """5 greedy requests through 3 slots (float32, cache 48): the JAX
     engine's tokens, slots and steps, and with power accounting on its
-    per-request energies within rtol 1e-6. xLSTM serves without
+    per-request energies within rtol 1e-6; the archs the paged engine
+    takes give the same tokens and energies through it with ample pages
+    (3 rows, pages of 8). xLSTM serves without
     accounting: its monitored weight (the mLSTM's ``wq``, ``di x di`` with
     ``di = 2 d``) has a K unlike the embedded width's below the monitor's
     1024-deep sample, which the JAX accountant refuses (an assertion in
@@ -294,8 +310,8 @@ def test_zoo_archs_serve_as_the_jax_engine(arch):
     eng = ServeEngine(params, cfg, ServeConfig(
         max_slots=3, cache_len=CACHE_LEN, power_monitor=power_on,
         device="cpu"))
-    assert eng._pad_safe == jeng._pad_safe == (arch in (
-        "deepseek-v2-lite-16b", "minicpm3-4b"))
+    assert eng._pad_safe == jeng._pad_safe == (arch not in (
+        "recurrentgemma-9b", "xlstm-1.3b"))
     jdone, done = _drain(jeng, prompts), _drain(eng, prompts)
     assert ({u: (r.generated, r.slot, r.start_step, r.finish_step)
              for u, r in done.items()}
@@ -307,13 +323,25 @@ def test_zoo_archs_serve_as_the_jax_engine(arch):
                 max_slots=3, cache_len=CACHE_LEN, power_monitor=True,
                 device="cpu")), prompts[:1])
         return
+    runs = [done]
+    if arch in ZOO_PAGED:
+        paged = ServeEngine(params, cfg, ServeConfig(
+            cache_len=CACHE_LEN, power_monitor=True, device="cpu",
+            paging=PagingConfig(page_size=8, num_pages=3 * CACHE_LEN // 8
+                                + 1, max_rows=3)))
+        assert isinstance(paged, PagedServeEngine)
+        runs.append(_drain(paged, prompts))
+        assert ({u: r.generated for u, r in runs[1].items()}
+                == {u: r.generated for u, r in jdone.items()})
     for uid, jr in jdone.items():
-        r = done[uid].power
-        assert r.sites == jr.power.sites
-        for d, comps in jr.power.energy.items():
-            for c, v in comps.items():
-                np.testing.assert_allclose(r.energy[d][c], v, rtol=1e-6,
-                                           err_msg=f"{uid} {d}/{c}")
+        for got in runs:
+            r = got[uid].power
+            assert r.sites == jr.power.sites
+            for d, comps in jr.power.energy.items():
+                for c, v in comps.items():
+                    np.testing.assert_allclose(r.energy[d][c], v,
+                                               rtol=1e-6,
+                                               err_msg=f"{uid} {d}/{c}")
 
 
 def test_explicit_buckets_cannot_break_recurrent_archs():
@@ -345,15 +373,33 @@ def test_embeds_and_codes_archs_are_not_served(arch):
 
 
 def test_paged_serving_refuses_what_it_does_not_run():
-    """The paged engine takes attention archs: MLA waits for paged MLA
-    serving (ROADMAP queue 1 step 4), recurrent mixers and M-RoPE are
-    refused as the JAX paged engine refuses them."""
-    for arch, err, match in (
-            ("minicpm3-4b", NotImplementedError, "step 4"),
-            ("recurrentgemma-9b", ValueError, "attn/mla"),
-            ("xlstm-1.3b", ValueError, "attn/mla")):
+    """The paged engine takes the position-masked caches, attention and
+    MLA (served in ``test_zoo_archs_serve_as_the_jax_engine`` and
+    ``tests/test_torch_paging.py``); recurrent mixers and M-RoPE are
+    refused as the JAX paged engine refuses them (M-RoPE on the VLM's
+    backbone fed tokens, as no token arch of the zoo has it)."""
+    paging = PagingConfig(page_size=8)
+    for arch in ("minicpm3-4b", "deepseek-v2-lite-16b"):
         cfg = SMOKES[arch]
         params = lm.init_model(cfg, torch.Generator().manual_seed(0))
+        eng = ServeEngine(params, cfg, ServeConfig(device="cpu",
+                                                   paging=paging))
+        assert isinstance(eng, PagedServeEngine)
+        eng.submit([1, 2, 3], max_new_tokens=2)
+        assert len(eng.run()[0].generated) == 2
+    vlm = SMOKES["qwen2-vl-72b"].with_(inputs="tokens")
+    jvlm = JSMOKES["qwen2-vl-72b"].with_(inputs="tokens")
+    for arch, cfg, err, match in (
+            ("recurrentgemma-9b", SMOKES["recurrentgemma-9b"], ValueError,
+             "attn/mla"),
+            ("xlstm-1.3b", SMOKES["xlstm-1.3b"], ValueError, "attn/mla"),
+            ("qwen2-vl-72b", vlm, ValueError, "mrope")):
+        params = lm.init_model(cfg, torch.Generator().manual_seed(0))
         with pytest.raises(err, match=match):
-            ServeEngine(params, cfg, ServeConfig(
-                device="cpu", paging=PagingConfig(page_size=8)))
+            ServeEngine(params, cfg, ServeConfig(device="cpu",
+                                                 paging=paging))
+    jcfg = jvlm
+    jparams = jlm.init_model(jax.random.key(0), jcfg)
+    with pytest.raises(ValueError, match="mrope"):
+        JServeEngine(jparams, jcfg, JServeConfig(
+            paging=JPagingConfig(page_size=8)))

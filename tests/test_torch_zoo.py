@@ -181,9 +181,62 @@ def test_mla_parallel_and_absorbed_decode_match_jax(arch):
         _close(got, want, TOL, f"mla absorbed decode {step}")
     for g, w in zip(st, jst):
         _close(g, w, TOL, "mla latent cache")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 step 4"):
-        T.apply_mla(p, _t(xt), cfg, positions=torch.from_numpy(pt),
-                    state=st, pages=torch.zeros((2, 1), dtype=torch.long))
+    # the same step through page tables that lay each row's cache out in
+    # order (row r's position t at page 1 + 4 r + t // 4): bitwise the
+    # dense absorbed decode, and the pools hold the dense caches
+    ps, mp = 4, 4
+    pools = tuple(torch.zeros((1 + 2 * mp, ps) + c.shape[2:]) for c in st)
+    for pool, c in zip(pools, st):
+        pool[1:] = c.reshape((2 * mp, ps) + c.shape[2:])
+    pages = torch.arange(1, 1 + 2 * mp).reshape(2, mp)
+    xt = _np(2, 1, jcfg.d_model)
+    pt = np.array([[13], [13]])
+    dense, st = T.apply_mla(p, _t(xt), cfg, positions=torch.from_numpy(pt),
+                            state=st)
+    paged, pools = T.apply_mla(p, _t(xt), cfg,
+                               positions=torch.from_numpy(pt), state=pools,
+                               pages=pages)
+    np.testing.assert_array_equal(paged.numpy(), dense.numpy())
+    for pool, c in zip(pools, st):
+        np.testing.assert_array_equal(
+            pool[1:].reshape(c.shape).numpy(), c.numpy())
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_mla_matches_jax(arch, s):
+    """The paged MLA branch against the JAX function on the same latent
+    page pools: a decode step (S = 1) with a dead row (all-trash table)
+    and two rows sharing a page, and a right-padded prefill chunk (S = 5,
+    positions -1 past the prompt) of one row; the outputs and the pools
+    after the in-place scatter (the pads' writes land in the trash page
+    0, which is not compared), float32."""
+    jcfg = JSMOKES[arch].with_(compute_dtype="float32")
+    cfg = SMOKES[arch].with_(compute_dtype="float32")
+    jp = JT.make_mla(jax.random.key(5), jcfg)
+    p = _tree(jp)
+    ps, npages = 4, 9
+    r, dr = jcfg.mla.kv_lora_rank, jcfg.mla.qk_rope_head_dim
+    pools = (_np(npages, ps, r), _np(npages, ps, dr))
+    if s == 1:
+        pages = np.array([[1, 2, 3, 0], [1, 2, 4, 0], [0, 0, 0, 0]],
+                         np.int32)
+        pos = np.array([[10], [9], [0]])
+    else:
+        pages = np.array([[5, 6, 7, 0]], np.int32)
+        pos = np.array([[6, 7, 8, 9, -1]])
+    x = _np(pages.shape[0], s, jcfg.d_model)
+    want, (jckv, jkr) = JT.apply_mla(
+        jp, jnp.asarray(x), jcfg, positions=jnp.asarray(pos, jnp.int32),
+        state=tuple(jnp.asarray(a) for a in pools),
+        pages=jnp.asarray(pages))
+    got, (ckv, kr) = T.apply_mla(
+        p, _t(x), cfg, positions=torch.from_numpy(pos),
+        state=tuple(_t(a.copy()) for a in pools),
+        pages=torch.from_numpy(pages))
+    _close(got, want, TOL, f"paged mla S={s}")
+    _close(ckv[1:], np.asarray(jckv)[1:], TOL, "paged ckv pool")
+    _close(kr[1:], np.asarray(jkr)[1:], TOL, "paged kr pool")
 
 
 # ------------------------------------------------------------------ rglru
