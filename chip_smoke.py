@@ -94,6 +94,17 @@ kernels' launch counts set to 0 just before it and read just after:
   package's three traffic scenarios at their smoke configs through
   ``run_scenario(device="cuda")``, against their plain runs, where
   ``shift`` must flip its prefill sites from mant-exp to bic-west.
+* training, ``repro_torch.launch.train.train``: Qwen1.5-0.5B at full
+  width from float32 masters (seed 0) on ``SyntheticLM`` batches of 8 x
+  256, 8 AdamW steps with the power monitor on every step and a
+  model-wide trace every 4. Kernel: K1, in the monitor (held to the
+  plain counters on the same updated params every step) and in every
+  traced site (held bitwise to a plain capture). The losses must be
+  finite and fall; the final state is checkpointed and restored
+  bitwise; a 2-layer cut of the model, stopped and resumed from its
+  checkpoint, must end at the straight run's loss; the int8 gradient
+  compression must give the CPU's bits on the card. A warm step is then
+  split by part and profiled, after the other profiles.
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
@@ -1275,6 +1286,284 @@ def phase_zoo_serving() -> dict:
     return out
 
 
+#: phase_train: Qwen1.5-0.5B at full width trained from seed 0 on
+#: SyntheticLM (seed 0) at the JAX TrainConfig's batch and sequence, the
+#: power monitor on every step and a whole-forward trace every
+#: TRAIN_TRACE_EVERY steps; resume equivalence on the same widths cut to
+#: TRAIN_RESUME_LAYERS layers (a full-depth checkpoint is ~5.6 GB)
+TRAIN_STEPS = 8
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+TRAIN_TRACE_EVERY = 4
+TRAIN_RESUME_LAYERS = 2
+TRAIN_RESUME_STEPS = 6
+#: tests/test_runtime.py's tolerance for resumed against straight runs
+TRAIN_RESUME_RTOL = 1e-4
+#: gradient-sized float32 tensors for compress_with_feedback, card
+#: against CPU: Qwen1.5-0.5B's embedding, FFN up and down, a norm scale
+TRAIN_COMPRESS_SHAPES = ((151936, 1024), (1024, 2816), (2816, 1024),
+                         (1024,))
+
+
+def phase_train() -> dict:
+    """The training path (``repro_torch.launch.train``) on the card.
+
+    (a) ``train()`` of Qwen1.5-0.5B at full width for TRAIN_STEPS steps
+    with the power monitor on and a trace every TRAIN_TRACE_EVERY steps.
+    Every loss and ``grad_norm`` must be finite and the last loss below
+    step 0's; at every step the monitor's metrics with K1 must equal,
+    within rtol 1e-6, the plain counters' on the same updated
+    params and batch; at each traced step every site's counters from K1
+    must be bitwise those of a plain capture of the same recorded
+    sites; K1's launches over the run are counted. Then the final params
+    and moments are saved once (asynchronously) and restored into fresh
+    tensors, bitwise.
+    (b) Resume equivalence at TRAIN_RESUME_LAYERS layers: two straight
+    runs of TRAIN_RESUME_STEPS steps (how far the card's own runs part)
+    and a run stopped at half and resumed from its checkpoint, whose
+    final loss must be within TRAIN_RESUME_RTOL of the first straight
+    run's.
+    (c) ``compress_with_feedback`` on TRAIN_COMPRESS_SHAPES, on the card
+    and on the CPU: bitwise (fault 7's rule: it divides by tensors).
+    """
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import compress_with_feedback
+    from repro_torch.trace import sweep as sw
+    from repro_torch.trace.capture import TraceCapture
+    from repro_torch.tree import tree_leaves, tree_map
+
+    class Recording(TraceCapture):
+        """A capture that keeps every site it records."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.recorded = []
+
+        def record(self, site):
+            self.recorded.append(site)
+            super().record(site)
+
+    cap_cfg = sw.make_capture_config()
+    ref_cfg = dataclasses.replace(cap_cfg, monitor=dataclasses.replace(
+        cap_cfg.monitor, backend="ref"))
+    out = {}
+    seen = {"step_ms": [], "monitor_ms": [], "trace_s": [], "extra": 0}
+    build, power_trace = tr.build, tr._power_trace
+
+    def checked_build(tc):
+        cfg, opt, step_fn = build(tc)
+
+        def step(params, opt_state, batch, i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch, i)
+            torch.cuda.synchronize()
+            seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            seen["state"] = (params, opt_state)
+            if tc.power_monitor:
+                n = k1.fused_counters_cuda.launches
+                t0 = time.perf_counter()
+                again = lm._monitor_metrics(params, cfg, batch)
+                torch.cuda.synchronize()
+                seen["monitor_ms"].append((time.perf_counter() - t0) * 1e3)
+                seen["extra"] += k1.fused_counters_cuda.launches - n
+                plain = lm._monitor_metrics(params, cfg, batch, "ref")
+                power = {k: v for k, v in m.items()
+                         if k.startswith("power/")}
+                if not (sorted(power) == sorted(again) == sorted(plain)):
+                    raise AssertionError(f"train step {i}: monitor keys "
+                                         f"{sorted(power)} {sorted(plain)}")
+                for k, v in power.items():
+                    if float(v) != float(again[k]):
+                        raise AssertionError(f"train step {i} {k}: the "
+                                             f"monitor is not repeatable")
+                    assert_close(float(v), float(plain[k]),
+                                 f"train step {i} {k} (K1 against plain)")
+            return params, opt_state, m
+
+        return cfg, opt, step
+
+    def checked_trace(tc, cfg, params, batch, i, capture=None):
+        cap = Recording(cap_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg = power_trace(tc, cfg, params, batch, i, capture=cap)
+        torch.cuda.synchronize()
+        seen["trace_s"].append(time.perf_counter() - t0)
+        ref = TraceCapture(ref_cfg)
+        for site in cap.recorded:
+            ref.record(site)
+        for name, acc in cap.sites.items():
+            r = ref.sites[name]
+            if (r.counters != acc.counters or r.zf_sum != acc.zf_sum
+                    or r.calls != acc.calls):
+                raise AssertionError(f"train trace at step {i}, {name}: "
+                                     f"counters with K1 differ from the "
+                                     f"plain versions'")
+        seen.setdefault("trace_calls", []).append(len(cap.recorded))
+        return agg
+
+    tr.build, tr._power_trace = checked_build, checked_trace
+    tmp = tempfile.mkdtemp(prefix="train_", dir=ROOT / "build")
+    try:
+        # (a) the main path at full width
+        tc = tr.TrainConfig(arch=SERVE_ARCH, steps=TRAIN_STEPS,
+                            seq=TRAIN_SEQ, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                            warmup=TRAIN_WARMUP, power_monitor=True,
+                            power_trace_every=TRAIN_TRACE_EVERY)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.fused_counters_cuda.launches = 0
+        t0 = time.perf_counter()
+        run = tr.train(tc)
+        wall = time.perf_counter() - t0
+        launches = k1.fused_counters_cuda.launches - seen["extra"]
+        hist = run["history"]
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        if len(hist) != TRAIN_STEPS or not all(
+                np.isfinite(losses + norms)):
+            raise AssertionError(f"train: losses {losses}, grad norms "
+                                 f"{norms}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train: the loss did not fall: {losses}")
+        traced = [t["step"] for t in run["power_traces"]]
+        if traced != list(range(0, TRAIN_STEPS, TRAIN_TRACE_EVERY)):
+            raise AssertionError(f"train: traces at steps {traced}")
+        want = 2 * TRAIN_STEPS + 2 * sum(seen["trace_calls"])
+        if launches != want:
+            raise AssertionError(f"train: K1 launches {launches}, expected "
+                                 f"{want} (2 a monitored step, 2 a traced "
+                                 f"call)")
+        peak = torch.cuda.max_memory_allocated()
+        params, opt_state = seen["state"]
+        ck = Checkpointer(tmp, keep=1, async_save=True)
+        t0 = time.perf_counter()
+        ck.save(TRAIN_STEPS - 1, (params, opt_state))
+        handed = time.perf_counter() - t0
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        fresh = tree_map(torch.empty_like, (params, opt_state))
+        t0 = time.perf_counter()
+        restored = ck.restore(TRAIN_STEPS - 1, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for a, b in zip(tree_leaves(restored), tree_leaves(
+                (params, opt_state))):
+            if not (a.device == b.device and torch.equal(a, b)):
+                raise AssertionError("train: the restored checkpoint is "
+                                     "not the saved state")
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        del restored, fresh, params, opt_state, seen["state"], ck
+        shutil.rmtree(tmp, ignore_errors=True)
+        warm = sorted(seen["step_ms"][1:])
+        out["a"] = {
+            "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "params": n_params, "wall_s": wall,
+            "step_ms": seen["step_ms"],
+            "warm_median_step_ms": warm[len(warm) // 2],
+            "trainer_median_step_ms": run["median_step_time"] * 1e3,
+            "monitor_ms": seen["monitor_ms"], "trace_s": seen["trace_s"],
+            "trace_calls": seen["trace_calls"],
+            "k1_launches": launches, "max_memory_gib": peak / 2 ** 30,
+            "save_s": save_s, "save_handed_back_s": handed,
+            "restore_s": restore_s, "loss": losses, "grad_norm": norms,
+            "power": {k: v for k, v in hist[-1].items()
+                      if k.startswith("power/")},
+            "traces": run["power_traces"]}
+        log(f"train (a) {SERVE_ARCH} at full width ({n_params} params), "
+            f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps in "
+            f"{wall:.1f} s: step ms {[round(t, 1) for t in seen['step_ms']]}"
+            f" (warm median {out['a']['warm_median_step_ms']:.1f}); loss "
+            f"{losses[0]!r} at step 0 -> {losses[-1]!r} at step "
+            f"{TRAIN_STEPS - 1}; monitor (K1) "
+            f"{[round(t, 2) for t in seen['monitor_ms']]} ms a step, "
+            f"equal to the plain counters' within rtol 1e-6; "
+            f"traces at {traced}: {seen['trace_calls']} calls in "
+            f"{[round(t, 2) for t in seen['trace_s']]} s, counters with K1 "
+            f"bitwise the plain versions' at every site; K1 launches "
+            f"{launches}; peak memory {peak / 2 ** 30:.2f} GiB; checkpoint "
+            f"saved in {save_s:.1f} s (handed back in {handed:.1f} s), "
+            f"restored in {restore_s:.1f} s, bitwise")
+
+        # (b) resume equivalence, cut in depth
+        tr.build, tr._power_trace = build, power_trace
+        get_config = tr.get_config
+        tr.get_config = lambda arch, smoke=False: get_config(
+            arch, smoke).with_(n_layers=TRAIN_RESUME_LAYERS)
+        kw = dict(arch=SERVE_ARCH, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                  lr=TRAIN_LR, warmup=TRAIN_WARMUP, ckpt_every=1000)
+        t0 = time.perf_counter()
+        straight = [tr.train(tr.TrainConfig(**kw, steps=TRAIN_RESUME_STEPS))
+                    for _ in range(2)]
+        tr.train(tr.TrainConfig(**kw, steps=TRAIN_RESUME_STEPS // 2,
+                                ckpt_dir=tmp))
+        resumed = tr.train(tr.TrainConfig(**kw, steps=TRAIN_RESUME_STEPS,
+                                          ckpt_dir=tmp))
+        resume_s = time.perf_counter() - t0
+        shutil.rmtree(tmp, ignore_errors=True)
+        want = straight[0]["final_loss"]
+        first = resumed["history"][0]["step"]
+        if first != TRAIN_RESUME_STEPS // 2:
+            raise AssertionError(f"train resume: started at step {first}")
+        spread = abs(straight[1]["final_loss"] - want) / abs(want)
+        apart = abs(resumed["final_loss"] - want) / abs(want)
+        if apart > TRAIN_RESUME_RTOL:
+            raise AssertionError(
+                f"train resume: final loss {resumed['final_loss']!r} "
+                f"against {want!r} straight ({apart:.3g} apart; two "
+                f"straight runs {spread:.3g})")
+        out["b"] = {"layers": TRAIN_RESUME_LAYERS,
+                    "steps": TRAIN_RESUME_STEPS, "wall_s": resume_s,
+                    "straight_final_loss": [s["final_loss"]
+                                            for s in straight],
+                    "resumed_final_loss": resumed["final_loss"],
+                    "straight_rel": spread, "resumed_rel": apart,
+                    "bitwise": resumed["final_loss"] == want}
+        log(f"train (b) {TRAIN_RESUME_LAYERS} of 24 layers, "
+            f"{TRAIN_RESUME_STEPS} steps: straight final losses "
+            f"{out['b']['straight_final_loss']} ({spread:.3g} apart), "
+            f"stopped at {TRAIN_RESUME_STEPS // 2} and resumed "
+            f"{resumed['final_loss']!r} ({apart:.3g} from the first; "
+            f"bitwise: {out['b']['bitwise']}), {resume_s:.1f} s")
+    finally:
+        tr.build, tr._power_trace = build, power_trace
+        if "get_config" in locals():
+            tr.get_config = get_config
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) compress_with_feedback, card against CPU
+    gen = torch.Generator().manual_seed(0)
+    grads = {str(i): torch.randn(s, generator=gen) * 10.0 ** -(i % 3)
+             for i, s in enumerate(TRAIN_COMPRESS_SHAPES)}
+    err = {k: torch.randn(g.shape, generator=gen) * 1e-3
+           for k, g in grads.items()}
+    want = compress_with_feedback(grads, err)
+    got = compress_with_feedback(
+        {k: g.cuda() for k, g in grads.items()},
+        {k: e.cuda() for k, e in err.items()})
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("compress_with_feedback: the card and the "
+                                 "CPU differ")
+    out["c"] = {"shapes": [list(s) for s in TRAIN_COMPRESS_SHAPES],
+                "bitwise": True}
+    log(f"train (c) compress_with_feedback on "
+        f"{[list(s) for s in TRAIN_COMPRESS_SHAPES]}: card and CPU bitwise")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_trace_busy(traces: dict) -> None:
     """Each trace of :data:`TRACE_RUNS` once more, warm, under the
     profiler: its kernels' device time and the device's busy share of
@@ -1291,6 +1580,58 @@ def phase_trace_busy(traces: dict) -> None:
         traces[label]["profiled"] = prof
         traces[label]["busy_share"] = prof and (prof["busy_ms"]
                                                 / prof["wall_ms"])
+
+
+def phase_train_busy(train: dict) -> None:
+    """Where a warm train step of phase_train (a) spends its time, from
+    the initial state of its model and its step-1 batch: the loss with
+    its backward, the optimiser's update with the masters' add, the
+    monitor and the whole step (K1 included), each by CUDA events; then
+    the whole step under the profiler (device time by kernel, the busy
+    share of its wall time). Added to ``train["a"]``; it runs after every
+    timing phase, as :func:`phase_trace_busy` does."""
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    tc = tr.TrainConfig(arch=SERVE_ARCH, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
+                        batch=TRAIN_BATCH, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                        power_monitor=True)
+    cfg, opt, step_fn = tr.build(tc)
+    params, opt_state = tr.init_state(cfg, opt, torch.device("cuda"),
+                                      tc.seed)
+    device = tree_leaves(params)[0].device
+    batch = tr.batch_to(make_source(cfg, DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=tc.seed)).batch(1),
+        device)
+    step = torch.tensor(1, dtype=torch.int32, device=device)
+
+    def loss_and_backward():
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss, _ = lm.loss_fn(tree_unflatten(params, leaves), cfg, batch)
+        return tree_unflatten(params, torch.autograd.grad(loss, leaves))
+
+    grads = loss_and_backward()
+
+    def update():
+        with torch.no_grad():
+            updates, _ = opt.update(grads, opt_state, params, step)
+            return tree_map(torch.add, params, updates)
+
+    parts = {"loss_and_backward": loss_and_backward, "optimiser": update,
+             "monitor": lambda: lm._monitor_metrics(params, cfg, batch),
+             "step": lambda: step_fn(params, opt_state, batch, step)}
+    ms = {k: time_ms(fn, 3) for k, fn in parts.items()}
+    log("train step at full width by part (CUDA events): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in ms.items()))
+    prof = profile_once("train step", parts["step"])
+    train["a"]["step_parts_ms"] = ms
+    train["a"]["profiled"] = prof
+    train["a"]["busy_share"] = prof and prof["busy_ms"] / prof["wall_ms"]
+    del params, opt_state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_breakdown(net: str, designs) -> dict:
@@ -3282,8 +3623,10 @@ def main() -> int:
     k4 = phase_paged_timing(cfg, paged["engine"], paged_requests(cfg.vocab))
     stream = phase_stream_timing(site_pass)
     k5, k6, k7 = stream["k5"], stream["k6"], stream["k7"]
+    train = phase_train()
     phase_sweep_busy(sweep, sweep_sites)
     phase_trace_busy(traces)
+    phase_train_busy(train)
     n_sites = len(site_pass["sites"])
 
     from repro_torch.kernels.zvg_matmul import kernel as kz
@@ -3330,6 +3673,8 @@ def main() -> int:
                                              "fused_counters_cuda"),
         "launches_telemetry": telemetry_launches(telemetry,
                                                  "fused_counters_cuda"),
+        "launches_train": train["a"]["k1_launches"],
+        "train": train,
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",

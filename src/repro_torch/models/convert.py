@@ -28,7 +28,9 @@ def _tensors(tree, device):
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, device="cpu") -> dict:
-    """The port's parameter tree from the JAX package's (numpy leaves)."""
+    """The port's parameter tree from the JAX package's (numpy leaves);
+    any tree shaped like the params (gradients, optimiser moments)
+    carries across the same way."""
     stack = tree["stack"]
     groups = stack["groups"]
     layers = [_tensors(b, device) for b in stack["head"]]
@@ -51,3 +53,14 @@ def _index(tree, g: int):
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def opt_state_from_jax(state, cfg: ArchConfig, device="cpu"):
+    """The port's :class:`repro_torch.optim.AdamWState` from the JAX
+    package's ``AdamWState`` with numpy leaves: ``m``, ``v`` and, under
+    compression, ``err``, each shaped like the params."""
+    from repro_torch.optim import AdamWState
+
+    def tree(t):
+        return None if t is None else params_from_jax(t, cfg, device)
+    return AdamWState(m=tree(state.m), v=tree(state.v), err=tree(state.err))

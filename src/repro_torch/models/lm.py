@@ -1,7 +1,7 @@
-"""Language-model wrapper: weights, embeddings, the output heads, and the
+"""Language-model wrapper: weights, embeddings, the output heads, the
 step builders the serving engine and the tracer run (prefill, slot
 prefill, paged chunk prefill, embedding for the power accountant,
-decode).
+decode), and training's loss, train step and power monitor.
 
 Input modalities, as the JAX package's (``cfg.inputs`` names the key of
 a batch dict that holds each, :func:`model_input`):
@@ -19,13 +19,19 @@ or :func:`repro_torch.models.convert.params_from_jax`), which the power
 accountant streams as the JAX package does; and the compute weights of
 :func:`compute_weights`, cast once to the config's compute dtype, which
 the steps run on. The JAX package casts ``p.astype(x.dtype)`` on every
-call; a cast once gives the same bits.
+call; a cast once gives the same bits. Training differentiates through
+the casts back to the masters, where the number of casts matters: the
+tied embedding's lookup and head are two casts, as in the JAX package,
+so their cotangents add in float32 (:func:`loss_fn`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import monitor as pm_monitor
+from repro_torch.core import systolic
 from repro_torch.trace import interpret
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 from . import layers as L
 from . import matmul as mm
@@ -67,12 +73,16 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return p
 
 
-def compute_weights(params: dict, cfg: ArchConfig) -> dict:
+def compute_weights(params: dict, cfg: ArchConfig, head: bool = True
+                    ) -> dict:
     """The weights the steps run on: every leaf in the compute dtype but
     norm scales and biases (every ``norm`` sub-tree) and the leaves of
     :data:`_F32_LEAVES`, which stay float32 as the JAX package reads
     them; plus ``"head"``, the output projection made contiguous (the
-    tied ``embed.T``, ``unembed``, or the codes heads ``[K, D, V]``)."""
+    tied ``embed.T``, ``unembed``, or the codes heads ``[K, D, V]``).
+    The casts are differentiable: :func:`loss_fn` runs on these weights
+    without the head (``head=False``) and casts the head once a use, as
+    the JAX package does."""
     dt = compute_dtype(cfg)
 
     def cast(tree):
@@ -84,6 +94,8 @@ def compute_weights(params: dict, cfg: ArchConfig) -> dict:
            "final_norm": params["final_norm"]}
     if "embed" in params:
         out["embed"] = params["embed"].to(dt)
+    if not head:
+        return out
     if cfg.inputs == "codes":
         head = params["heads"].to(dt)
     else:
@@ -312,3 +324,159 @@ def pick_monitor_weights(params: dict, cfg: ArchConfig
     if "up" in blk.get("ffn", {}):
         out.append(("layer0/ffn_up", blk["ffn"]["up"]))
     return out
+
+
+# -------------------------------------------------------------------- loss
+def _head_weights(params: dict, cfg: ArchConfig, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The output projection cast from its float32 master: one cast a
+    use, as the JAX package's ``_head_weights``. A tied head is its own
+    cast of ``embed``, apart from the lookup's, so the two cotangents
+    meet in float32."""
+    if cfg.inputs == "codes":
+        return params["heads"].to(dtype)
+    if cfg.tie_embeddings:
+        return params["embed"].to(dtype).T
+    return params["unembed"].to(dtype)
+
+
+def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
+                targets: torch.Tensor, mask: torch.Tensor,
+                chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``h [B, S, D]`` in chunks of
+    ``min(chunk, S)`` positions (the last zero-padded), so no ``[B, S,
+    V]`` logits live at once: ``targets [B, S]`` (``[B, K, S]`` for
+    codes, whose per-position CE is the mean over the K codebooks),
+    ``mask [B, S]`` float32. The head is cast in each chunk, the
+    log-sum-exp taken in float32, and the label logit gathered (no ``[..,
+    V]`` one-hot)."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    nb = -(-s // c)
+    pad = nb * c - s
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(nb):
+        hc = h[:, i * c:(i + 1) * c]
+        tc = targets[..., i * c:(i + 1) * c]
+        mc = mask[:, i * c:(i + 1) * c]
+        lg = logits_fn({"head": _head_weights(params, cfg, hc.dtype)}, cfg,
+                       hc)                         # [B,c,V] or [B,c,K,V]
+        lse = torch.logsumexp(lg, dim=-1)
+        if cfg.inputs == "codes":
+            tc = tc.movedim(1, -1)                 # [B, c, K]
+        lab = lg.gather(-1, tc[..., None].long())[..., 0]
+        ce = lse - lab
+        if cfg.inputs == "codes":
+            ce = ce.sum(-1) / torch.tensor(float(cfg.codebooks),
+                                           device=h.device)
+        tot = tot + (ce * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, chunk: int = 512):
+    """Next-token loss of the float32 masters ``params`` on a JAX-style
+    batch (:func:`model_input`; targets from ``tokens``, ``labels`` for
+    embeds, or ``codes``, shifted by one; an optional ``mask [B, S]``,
+    ones by default): ``(loss, {"loss", "ce", "aux"})`` with ``loss = ce
+    + 0.01 * aux``, every value a float32 0-d tensor that carries the
+    graph back to ``params``."""
+    inputs, positions = model_input(cfg, batch)
+    h, _, aux = apply_model(compute_weights(params, cfg, head=False), cfg,
+                            inputs, positions)
+    tokens = batch["labels" if cfg.inputs == "embeds" else cfg.inputs]
+    rows = tokens[:, 0] if cfg.inputs == "codes" else tokens
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(rows.shape, device=h.device)
+    ce = _chunked_ce(params, cfg, h[:, :-1], tokens[..., 1:],
+                     mask[:, 1:].float(), chunk)
+    loss = ce + 0.01 * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------- training
+def _split(a: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Micro-batch ``i`` of ``n`` along the batch axis: axis 0, or axis 1
+    for leading-component leaves such as M-RoPE's ``[3, B, S]``
+    positions (the JAX package's rule)."""
+    ax = 0 if a.shape[0] % n == 0 else 1
+    m = a.shape[ax] // n
+    return a.narrow(ax, i * m, m)
+
+
+def make_train_step(cfg: ArchConfig, optimizer, grad_accum: int = 1,
+                    monitor: bool = False, chunk: int = 512):
+    """``(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``: gradients of :func:`loss_fn` against the float32 masters
+    by ``torch.autograd`` (summed over ``grad_accum`` micro-batches in
+    order and divided by their count), ``grad_norm`` over the unclipped
+    gradients, the optimiser's update added to the masters (new
+    tensors: the arguments are left as they are), and with ``monitor``
+    the power metrics of :func:`_monitor_metrics` on the updated
+    params. Metrics are float32 0-d tensors on the params' device."""
+    def grads_of(params, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree_unflatten(params, leaves), cfg,
+                                    batch, chunk)
+            grads = torch.autograd.grad(loss, leaves)
+        return (tree_unflatten(params, grads),
+                {k: v.detach() for k, v in metrics.items()})
+
+    def train_step(params, opt_state, batch, step):
+        device = tree_leaves(params)[0].device
+        if grad_accum > 1:
+            grads, metrics = None, None
+            for i in range(grad_accum):
+                g, m = grads_of(params, {k: _split(v, grad_accum, i)
+                                         for k, v in batch.items()})
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+                metrics = (m if metrics is None
+                           else tree_map(torch.add, metrics, m))
+            n = torch.tensor(float(grad_accum), device=device)
+            grads = tree_map(lambda g: g / n, grads)
+            metrics = tree_map(lambda m: m / n, metrics)
+        else:
+            grads, metrics = grads_of(params, batch)
+        with torch.no_grad():
+            step = torch.as_tensor(step, dtype=torch.int32, device=device)
+            updates, opt_state = optimizer.update(grads, opt_state, params,
+                                                  step)
+            params = tree_map(torch.add, params, updates)
+            metrics["grad_norm"] = torch.sqrt(sum(
+                torch.sum(torch.square(g.float()))
+                for g in tree_leaves(grads)))
+        if monitor:
+            metrics.update(_monitor_metrics(params, cfg, batch))
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _monitor_metrics(params: dict, cfg: ArchConfig, batch: dict,
+                     backend: str | None = None) -> dict:
+    """The paper's PowerMonitor on the training step, as the JAX
+    package's: the first 256 embedded rows (bfloat16, as the JAX
+    ``embed_inputs`` defaults) against ``w[:, :256]`` of the first
+    monitored weight (:func:`pick_monitor_weights`, its float32
+    master), streamed through the 128 x 128 MXU-geometry array; keyed
+    ``power/<metric>``, the sample sizes left out. ``backend`` picks the
+    counter pass (K1 on the card by default)."""
+    with torch.no_grad():
+        inputs, positions = model_input(cfg, batch)
+        embed = params.get("embed")
+        x, _ = embed_inputs(None if embed is None else embed.to(
+            torch.bfloat16), cfg, inputs, positions, torch.bfloat16)
+        x2 = x.reshape(-1, x.shape[-1])[:256]
+        w = pick_monitor_weights(params, cfg)[0][1]
+        mcfg = pm_monitor.MonitorConfig(geometry=systolic.MXU_SA,
+                                        backend=backend)
+        m = pm_monitor.monitor_matmul(x2, w[:, :256], mcfg)
+    return {f"power/{k}": v for k, v in m.items()
+            if k not in pm_monitor.SIZE_KEYS}

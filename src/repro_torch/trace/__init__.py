@@ -36,10 +36,13 @@ __all__ = [
 
 def trace_calls(fn: Callable, calls: Sequence[tuple], *,
                 name: str = "model",
-                cfg: CaptureConfig = DEFAULT_CAPTURE) -> TraceReport:
+                cfg: CaptureConfig = DEFAULT_CAPTURE,
+                capture: TraceCapture | None = None) -> TraceReport:
     """Trace ``fn(*args)`` for every args-tuple in ``calls``, accumulating
-    per-site statistics across calls (decode steps, several batches)."""
-    cap = TraceCapture(cfg)
+    per-site statistics across calls (decode steps, several batches)
+    into ``capture`` (a new one of ``cfg`` by default)."""
+    cap = capture or TraceCapture(cfg)
+    cfg = cap.cfg
     skipped: list[str] = []
     for args in calls:
         _, sk = trace_fn(fn, *args, emit=cap,
@@ -49,7 +52,8 @@ def trace_calls(fn: Callable, calls: Sequence[tuple], *,
 
 
 def trace_model(fn: Callable, *args, name: str = "model",
-                cfg: CaptureConfig = DEFAULT_CAPTURE) -> TraceReport:
+                cfg: CaptureConfig = DEFAULT_CAPTURE,
+                capture: TraceCapture | None = None) -> TraceReport:
     """Trace one call of ``fn(*args)`` and report every matmul's BIC+ZVG
     power outcome; the function computes what it computes untraced."""
-    return trace_calls(fn, [args], name=name, cfg=cfg)
+    return trace_calls(fn, [args], name=name, cfg=cfg, capture=capture)

@@ -82,11 +82,26 @@ def test_serve_cli_runs_on_the_cpu_when_asked():
     assert out.stdout.count(" length ") == 5
 
 
+@pytest.mark.parametrize("args,done", [
+    (["-m", "repro_torch.launch.train", "--smoke", "--steps", "2",
+      "--batch", "2", "--seq", "16"], "done: final loss"),
+    (["-m", "repro_torch.apps.train_lm", "--steps", "2", "--batch", "2",
+      "--seq", "16"], "loss trajectory:")], ids=["launch.train", "train_lm"])
+def test_train_clis_run_on_the_cpu_when_asked(args, done, tmp_path):
+    out = _run(args + ["--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert out.returncode == 0, out.stderr
+    assert done in out.stdout + out.stderr
+    assert (tmp_path / "LATEST").read_text() == "step_00000001"
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
     for args in (["-m", "repro_torch.apps.cnn", "--res", "32"],
-                 ["-m", "repro_torch.serve", "--smoke"]):
+                 ["-m", "repro_torch.serve", "--smoke"],
+                 ["-m", "repro_torch.launch.train", "--smoke", "--steps",
+                  "1"],
+                 ["-m", "repro_torch.apps.train_lm", "--steps", "1"]):
         out = _run(args)
         assert out.returncode != 0
         assert "CUDA is not available" in out.stderr
