@@ -62,12 +62,12 @@ kernels' launch counts set to 0 just before it and read just after:
   be identical to the plain versions' and the JAX package's golden
   floors must hold.
 * the LM zoo at its published widths (random bf16 weights from seed 0):
-  Granite-3.0-2B whole (40 layers), Phi-3.5-MoE cut to 4 of 32 layers,
-  DeepSeek-67B to 2 of 95, MiniCPM3-4B to 24 of 62 (MLA with q-LoRA),
+  Granite-3.0-2B cut to 8 of 40 layers, Phi-3.5-MoE to 4 of 32,
+  DeepSeek-67B to 2 of 95, MiniCPM3-4B to 8 of 62 (MLA with q-LoRA),
   DeepSeek-V2-Lite to 4 of 27 (MLA, 64 experts), RecurrentGemma-9B to 14
   of 38 (RG-LRU and local attention), xLSTM-1.3B to 16 of 48,
-  MusicGen-medium whole (48, codes), Qwen2-VL-72B to 2 of 80 (M-RoPE over
-  embeds), each
+  MusicGen-medium to 8 of 48 (codes), Qwen2-VL-72B to 2 of 80 (M-RoPE
+  over embeds), each
   traced over a forward (batch 2, seq 16) and 3 decode steps. Kernels: K1
   for every site's counters (held bitwise to the plain versions' at every
   site), K2 in every decode matmul the JAX package runs through its
@@ -105,6 +105,17 @@ kernels' launch counts set to 0 just before it and read just after:
   checkpoint, must end at the straight run's loss; the int8 gradient
   compression must give the CPU's bits on the card. A warm step is then
   split by part and profiled, after the other profiles.
+* the benchmark drivers, ``repro_torch.bench.run.run_suites`` on the
+  card: the paper's tables and figures (Fig. 2, the BIC variant grid,
+  Figs. 4/5, the overall table, the overhead scaling), the stream and
+  counter kernels against their plain versions, the monitor on LM
+  operands, and slot, paged and fused serving at the JAX benchmarks'
+  smoke sizes, with the analysis cache in a fresh directory; then the
+  three drivers earlier phases cover, with ``quick``. No suite may fail;
+  K1-K3 and K5-K7 must launch and K4 must not; the CNN analyses must
+  equal the main path's bitwise; the fused counter pass must report
+  integer equality; ``BENCH_serve.json`` and ``BENCH_kernels.json`` must
+  pass their schemas.
 
 The build prints ptxas's registers, shared memory and spills for the
 streaming decode matmul (K2), K3's chunked counter walk, the split-KV
@@ -715,20 +726,22 @@ def phase_sweep_busy(sweep: dict, sites) -> None:
 
 
 #: phase_zoo: the LM zoo at its published widths, each with the layers
-#: kept: Granite-3.0-2B whole, Phi-3.5-MoE cut to 4 of its 32 layers (42 B
+#: kept: Granite-3.0-2B cut to 8 of its 40 layers (time: whole, it took a
+#: large share of the phase on an NVIDIA H100 80GB HBM3 at 700 W, and
+#: phase_bench needs the room), Phi-3.5-MoE to 4 of its 32 layers (42 B
 #: parameters do not fit one 80 GB card in bf16), DeepSeek-67B to 2 of its
-#: 95; MiniCPM3-4B to 24 of 62 (time: traced whole it took 53 s of the
-#: script's ~600 on an NVIDIA H100 80GB HBM3 at 700 W; :data:`ZOO_SERVING`
-#: serves it whole); DeepSeek-V2-Lite to 4 of 27 (the dense head layer and
-#: 3 MoE layers: 15.7 B parameters are ~94 GB as float32 masters plus
-#: bf16); RecurrentGemma-9B to 14 of 38 (4 groups and the 2-block tail;
-#: memory and time); xLSTM-1.3B to 16 of 48 (2 groups of 7 mLSTM and 1
-#: sLSTM; time: 40 s whole on that card); MusicGen-medium whole;
+#: 95; MiniCPM3-4B to 8 of 62 (time: traced whole it took 53 s of the
+#: script's ~600 on that card; :data:`ZOO_SERVING` serves it whole);
+#: DeepSeek-V2-Lite to 4 of 27 (the dense head layer and 3 MoE layers:
+#: 15.7 B parameters are ~94 GB as float32 masters plus bf16);
+#: RecurrentGemma-9B to 14 of 38 (4 groups and the 2-block tail; memory
+#: and time); xLSTM-1.3B to 16 of 48 (2 groups of 7 mLSTM and 1 sLSTM;
+#: time: 40 s whole on that card); MusicGen-medium to 8 of 48 (time);
 #: Qwen2-VL-72B to 2 of 80 (72 B parameters do not fit one card)
-ZOO = (("granite-3-2b", 40), ("phi3.5-moe-42b-a6.6b", 4),
-       ("deepseek-67b", 2), ("minicpm3-4b", 24),
+ZOO = (("granite-3-2b", 8), ("phi3.5-moe-42b-a6.6b", 4),
+       ("deepseek-67b", 2), ("minicpm3-4b", 8),
        ("deepseek-v2-lite-16b", 4), ("recurrentgemma-9b", 14),
-       ("xlstm-1.3b", 16), ("musicgen-medium", 48), ("qwen2-vl-72b", 2))
+       ("xlstm-1.3b", 16), ("musicgen-medium", 8), ("qwen2-vl-72b", 2))
 ZOO_DECODE_STEPS = 3
 ZOO_SEQ = 16
 
@@ -1632,6 +1645,171 @@ def phase_train_busy(train: dict) -> None:
     del params, opt_state, grads
     gc.collect()
     torch.cuda.empty_cache()
+
+
+#: phase_bench: the suites of ``bench/run.py`` that no earlier phase
+#: drives, run whole, and the three whose paths phase_sweep, phase_trace
+#: and phase_telemetry drive, run with ``quick``
+BENCH_SUITES = ("fig2_distributions", "bic_variants", "counter_kernels",
+                "fig45_per_layer", "overall_savings", "overhead_scaling",
+                "activity_reduction", "power_monitor_lm", "serve_kernels",
+                "serve_paging", "serve_throughput")
+BENCH_QUICK = ("design_sweep", "trace_full_model", "serve_online")
+#: each benchmark artifact and the schema it must pass
+BENCH_ARTIFACTS = {
+    "serve_kernels": ("BENCH_kernels.json", "bench_kernels.schema.json"),
+    "serve_paging": ("BENCH_serve.json", "bench_serve.schema.json")}
+
+
+class _Tee:
+    """A stdout that also keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def bench_layers_equal(net: str, cached: dict, layers) -> None:
+    """The benchmarks' cached analysis (the paper pair) against the main
+    path's layers (the whole menu, whose first two designs are the
+    pair): every field bitwise, but the selection and the designs the
+    pair does not price."""
+    if len(cached["layers"]) != len(layers):
+        raise AssertionError(f"bench {net}: {len(cached['layers'])} layers, "
+                             f"the main path {len(layers)}")
+    for got, l in zip(cached["layers"], layers):
+        want = vars(l)
+        for k, v in want.items():
+            if k == "selected":
+                continue
+            if k == "designs":
+                v = {d: v[d] for d in got[k]}
+            if got[k] != v:
+                raise AssertionError(f"bench {net} {l.name}.{k}: {got[k]!r} "
+                                     f"!= the main path's {v!r}")
+
+
+def phase_bench(layers, mlayers) -> dict:
+    """The port's benchmark drivers on the card through
+    ``bench.run.run_suites``: :data:`BENCH_SUITES` whole, then
+    :data:`BENCH_QUICK` with ``quick``, the CNN analysis cache pointed at
+    a fresh temporary directory and the serving artifacts written there.
+    No suite may fail; each of K1-K3 and K5-K7 must launch in the phase
+    and K4 (the paged engine runs the plain route here, as in the JAX
+    benchmarks) must not; the cached CNN analyses must equal
+    ``run_main_path``'s layers bitwise; the fused counter pass must
+    report integer equality; the artifacts must pass their schemas. The
+    claim verdicts (C1-C5) and each suite's wall time are logged."""
+    import contextlib
+    import functools
+    import tempfile
+
+    from repro_torch.bench import common, run
+    from repro_torch.kernels.bic_encode import kernel as k6
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.transitions import kernel as k5
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+               kz.fused_matmul_counters_cuda, kz.fused_paged_attention_cuda,
+               k5.transitions_cuda, k6.bic_encode_cuda, kz.zvg_matmul_cuda)
+    walls: dict[str, float] = {}
+    by_suite: dict[str, dict] = {}
+
+    def timed_suite(name, fn):
+        """``fn`` with its wall time and its launches of each kernel."""
+        def call(**kw):
+            torch.cuda.synchronize()
+            before = [f.launches for f in counted]
+            t = time.perf_counter()
+            try:
+                return fn(**kw)
+            finally:
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t
+                by_suite[name] = {f.__name__: f.launches - n for f, n in
+                                  zip(counted, before) if f.launches > n}
+        return call
+
+    saved = (common.RESULTS, dict(run.SUITES))
+    tee = _Tee(sys.stdout)
+    with tempfile.TemporaryDirectory(prefix="bench_") as tmp:
+        tmp = Path(tmp)
+        common.RESULTS = str(tmp)
+        for name, (fn, quick) in saved[1].items():
+            if name in BENCH_ARTIFACTS:
+                fn = functools.partial(fn, emit_json=str(
+                    tmp / BENCH_ARTIFACTS[name][0]))
+            run.SUITES[name] = (timed_suite(name, fn), quick)
+        for fn in counted:
+            fn.launches = 0
+        try:
+            with contextlib.redirect_stdout(tee):
+                fails = run.run_suites(list(BENCH_SUITES), device="cuda")
+                fails += run.run_suites(list(BENCH_QUICK), quick=True,
+                                        device="cuda")
+        except SystemExit as e:
+            raise AssertionError(f"bench: a suite exited: {e}") from e
+        finally:
+            common.RESULTS = saved[0]
+            run.SUITES.clear()
+            run.SUITES.update(saved[1])
+        launches = {fn.__name__: fn.launches for fn in counted}
+        if fails:
+            raise AssertionError(f"bench: {fails} suite(s) failed")
+        log(f"bench: {len(walls)} suites, launches {json.dumps(launches)}; "
+            f"wall s {json.dumps({k: round(v, 3) for k, v in walls.items()})}"
+            f"; launches by suite {json.dumps(by_suite)}")
+        idle = [k for k, v in launches.items()
+                if (v == 0) != (k == "fused_paged_attention_cuda")]
+        if idle:
+            raise AssertionError(f"bench launches {launches}: {idle} not as "
+                                 f"expected (K4 none, every other kernel "
+                                 f"some)")
+        # serve_throughput's cells run the plain route but its fused one
+        fused = by_suite["serve_throughput"]
+        if not (fused.get("gated_row_matmul_cuda")
+                and fused.get("fused_matmul_counters_cuda")):
+            raise AssertionError(f"bench serve_throughput: launches {fused}: "
+                                 f"its fused cell ran without K2 and K3")
+        for net, ls in (("resnet50", layers), ("mobilenet", mlayers)):
+            cache = tmp / f"cnn_{net}_1img_224px_cuda.json"
+            bench_layers_equal(net, json.loads(cache.read_text()), ls)
+        log("bench: the cached ResNet50 and MobileNetV1 analyses equal the "
+            "main path's layers bitwise")
+        for artifact, schema in BENCH_ARTIFACTS.values():
+            rc = subprocess.run(
+                [sys.executable, str(ROOT / "tools" / "check_bench_schema.py"),
+                 "--schema", str(ROOT / "schemas" / schema),
+                 str(tmp / artifact)],
+                capture_output=True, text=True, timeout=120)
+            if rc.returncode:
+                raise AssertionError(f"bench {artifact}: {rc.stdout}"
+                                     f"{rc.stderr}")
+        log(f"bench: {', '.join(a for a, _ in BENCH_ARTIFACTS.values())} "
+            f"pass their schemas")
+    lines = tee.text().splitlines()
+    if not any(l.startswith("fused_counter_pass,")
+               and l.endswith("integer equality CONFIRMED") for l in lines):
+        raise AssertionError("bench: the fused counter pass did not report "
+                             "integer equality")
+    verdicts = [l.strip("# ") for l in lines
+                if any(c in l for c in (" C1 ", " C2 ", "C3:", "C4 ",
+                                        "ordering ResNet50",
+                                        "acceptance:"))]
+    for v in verdicts:
+        log(f"bench verdict: {v}")
+    return {"launches": launches, "launches_by_suite": by_suite,
+            "wall_s": walls, "verdicts": verdicts}
 
 
 def phase_breakdown(net: str, designs) -> dict:
@@ -3627,6 +3805,7 @@ def main() -> int:
     phase_sweep_busy(sweep, sweep_sites)
     phase_trace_busy(traces)
     phase_train_busy(train)
+    bench = phase_bench(layers, mlayers)
     n_sites = len(site_pass["sites"])
 
     from repro_torch.kernels.zvg_matmul import kernel as kz
@@ -3675,6 +3854,8 @@ def main() -> int:
                                                  "fused_counters_cuda"),
         "launches_train": train["a"]["k1_launches"],
         "train": train,
+        "launches_bench": bench["launches"]["fused_counters_cuda"],
+        "bench": bench,
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",
@@ -3692,6 +3873,7 @@ def main() -> int:
                                              "gated_row_matmul_cuda"),
         "launches_telemetry": telemetry_launches(telemetry,
                                                  "gated_row_matmul_cuda"),
+        "launches_bench": bench["launches"]["gated_row_matmul_cuda"],
         "zoo": zoo,
         "zoo_serving": zoo_serving,
         "max_abs_err": err2,
@@ -3728,6 +3910,7 @@ def main() -> int:
                                              "fused_matmul_counters_cuda"),
         "launches_telemetry": telemetry_launches(
             telemetry, "fused_matmul_counters_cuda"),
+        "launches_bench": bench["launches"]["fused_matmul_counters_cuda"],
         "telemetry": telemetry,
         "ms_by_kernel": k3["ms_by_kernel"],
         "k2_at_product_shape_ms": k3["k2_at_product_shape_ms"],
@@ -3745,6 +3928,7 @@ def main() -> int:
             telemetry, "fused_paged_attention_cuda"),
         "launches_zoo_serving": zoo_launches(zoo_serving,
                                              "fused_paged_attention_cuda"),
+        "launches_bench": bench["launches"]["fused_paged_attention_cuda"],
         "decode_steps_runs": {k: paged[k]["decode_steps"] for k in "abc"},
         "max_abs_err": err4,
         "max_rel_err": rel4,
@@ -3775,6 +3959,7 @@ def main() -> int:
         "replaces": K5_REPLACES,
         "launches": quick_launches["transitions_cuda"],
         "launches_resnet50_sites": site_launches["transitions_cuda"],
+        "launches_bench": bench["launches"]["transitions_cuda"],
         "max_abs_err": err5,
         "ms": k5["ms"],
         "plain_ms": k5["plain_ms"],
@@ -3792,6 +3977,7 @@ def main() -> int:
         "replaces": K6_REPLACES,
         "launches": quick_launches["bic_encode_cuda"],
         "launches_resnet50_sites": site_launches["bic_encode_cuda"],
+        "launches_bench": bench["launches"]["bic_encode_cuda"],
         "max_abs_err": err6,
         "ms": k6["ms"],
         "plain_ms": k6["plain_ms"],
@@ -3810,6 +3996,7 @@ def main() -> int:
         "replaces": K7_REPLACES,
         "launches": quick_launches["zvg_matmul_cuda"],
         "launches_resnet50_sites": site_launches["zvg_matmul_cuda"],
+        "launches_bench": bench["launches"]["zvg_matmul_cuda"],
         "max_abs_err": err7,
         "fault6_blocks": fault6["k7_blocks"],
         "max_rel_err": rel7,

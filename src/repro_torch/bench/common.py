@@ -2,13 +2,40 @@
 
 Every benchmark prints ``name,us_per_call,derived`` CSV rows plus a
 human-readable block, and runs on the card unless ``--device cpu``.
+Expensive CNN analyses are cached as JSON under ``results/bench_torch/``
+(:data:`RESULTS`), keyed by the device they ran on: an analysis of the
+plain versions on the CPU is never read back for a run on the card.
 """
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import torch
+
+#: the cache directory of :func:`cached` (read at each call, so a caller
+#: may point it elsewhere)
+RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "results", "bench_torch")
+
+
+def cache_path(name: str) -> str:
+    os.makedirs(RESULTS, exist_ok=True)
+    return os.path.join(RESULTS, name + ".json")
+
+
+def cached(name: str, fn):
+    """``fn()``'s JSON-able result, read from :func:`cache_path` when a
+    run has stored it there, else computed and stored."""
+    path = cache_path(name)
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    out = fn()
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, default=float)
+    return out
 
 
 def timed(fn, *args, warmup: int = 1, iters: int = 3):
@@ -59,3 +86,21 @@ def benchmark_cli(main, quick_help: str = "smaller workload (CI smoke)",
     args = ap.parse_args(argv)
     print("name,us_per_call,derived")
     main(quick=args.quick, emit_json=args.emit_json, device=args.device)
+
+
+def analyze_cached(net: str, n_images: int = 1, device="cuda"):
+    """Cached per-layer CNN power analysis used by several benchmarks:
+    ``{"layers": [vars(layer), ...], "summary": network_summary(...)}``
+    of :func:`repro_torch.apps.cnn.analysis.analyze_network` (the paper
+    pair, 224 px) on ``device``, keyed by net, image count, resolution
+    and the device's type."""
+    from repro_torch.apps.cnn import analysis
+
+    def run():
+        layers = analysis.analyze_network(net, n_images=n_images,
+                                          device=device, res=224)
+        return {"layers": [vars(l) for l in layers],
+                "summary": analysis.network_summary(layers)}
+
+    kind = torch.device(device).type
+    return cached(f"cnn_{net}_{n_images}img_224px_{kind}", run)

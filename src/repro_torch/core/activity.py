@@ -52,14 +52,35 @@ def activity_factor(x: torch.Tensor, axis: int) -> torch.Tensor:
     return t.to(torch.float32) / (bits.numel() * B.BF16_BITS)
 
 
+def _fma_f32(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors, rounded to float32 once (a fused
+    multiply-add): the product is exact in float64, the sum is rounded to
+    odd there (its TwoSum error decides), so the one rounding to float32
+    is the correctly rounded one."""
+    a, b, c = (t.to(torch.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def _linspace_f32(start: torch.Tensor, stop: torch.Tensor,
                   num: int) -> torch.Tensor:
-    """``num`` float32 points from ``start`` to ``stop`` as the JAX
-    package's ``linspace`` forms them: ``start * (1 - s) + stop * s``
-    with ``s = i / (num - 1)``, and ``stop`` itself last."""
+    """``num`` float32 points from ``start`` to ``stop`` as XLA compiles
+    the JAX package's ``linspace`` (``start * (1 - s) + stop * s``, ``s =
+    i / (num - 1)``) on the CPU: the division becomes a product with the
+    float32 reciprocal, ``stop * s`` is reassociated into ``i * (stop *
+    r)`` and fused with the sum into one multiply-add; ``stop`` itself
+    last."""
     div = num - 1
-    step = torch.arange(div, dtype=torch.float32, device=start.device) / div
-    out = start * (1 - step) + stop * step
+    rcp = torch.tensor(1.0 / div, dtype=torch.float32, device=start.device)
+    i = torch.arange(div, dtype=torch.float32, device=start.device)
+    out = _fma_f32(i, stop * rcp, start * (1 - i * rcp))
     return torch.cat([out, stop[None]])
 
 

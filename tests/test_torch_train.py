@@ -15,7 +15,7 @@ JAX function fuses ``g - q * scale`` and rounds apart, so the eager one
 is the reference.
 """
 import os
-import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -262,14 +262,19 @@ def test_checkpoint_tmp_is_never_latest(tmp_path):
 
 
 # ---------------------------------------------------------------- fault
-def test_step_timer_flags_stragglers():
+def test_step_timer_flags_stragglers(monkeypatch):
+    # a scripted clock: a sleep overruns by milliseconds on a loaded
+    # machine, which made a 2 ms step a straggler
+    clock = {"t": 0.0}
+    monkeypatch.setattr(fault, "time", types.SimpleNamespace(
+        perf_counter=lambda: clock["t"]))
     t = fault.StepTimer(straggler_factor=1.5, device="cpu")
     for i in range(6):
         t.start()
-        time.sleep(0.002)
+        clock["t"] += 0.002
         t.stop(i)
     t.start()
-    time.sleep(0.05)
+    clock["t"] += 0.05
     t.stop(99)
     assert t.straggler_steps == [99]
     assert 0.0015 < t.median < 0.05
