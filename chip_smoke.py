@@ -62,11 +62,11 @@ kernels' launch counts set to 0 just before it and read just after:
   be identical to the plain versions' and the JAX package's golden
   floors must hold.
 * the LM zoo at its published widths (random bf16 weights from seed 0):
-  Granite-3.0-2B cut to 8 of 40 layers, Phi-3.5-MoE to 4 of 32,
-  DeepSeek-67B to 2 of 95, MiniCPM3-4B to 8 of 62 (MLA with q-LoRA),
-  DeepSeek-V2-Lite to 4 of 27 (MLA, 64 experts), RecurrentGemma-9B to 14
-  of 38 (RG-LRU and local attention), xLSTM-1.3B to 16 of 48,
-  MusicGen-medium to 8 of 48 (codes), Qwen2-VL-72B to 2 of 80 (M-RoPE
+  Granite-3.0-2B cut to 4 of 40 layers, Phi-3.5-MoE to 4 of 32,
+  DeepSeek-67B to 2 of 95, MiniCPM3-4B to 4 of 62 (MLA with q-LoRA),
+  DeepSeek-V2-Lite to 4 of 27 (MLA, 64 experts), RecurrentGemma-9B to 8
+  of 38 (RG-LRU and local attention), xLSTM-1.3B to 8 of 48,
+  MusicGen-medium to 4 of 48 (codes), Qwen2-VL-72B to 2 of 80 (M-RoPE
   over embeds), each
   traced over a forward (batch 2, seq 16) and 3 decode steps. Kernels: K1
   for every site's counters (held bitwise to the plain versions' at every
@@ -94,6 +94,18 @@ kernels' launch counts set to 0 just before it and read just after:
   package's three traffic scenarios at their smoke configs through
   ``run_scenario(device="cuda")``, against their plain runs, where
   ``shift`` must flip its prefill sites from mant-exp to bic-west.
+* the mesh (``phase_mesh``): the card's 1x1 ``DeviceMesh`` (NCCL, world
+  size 1) of ``repro_torch.launch.mesh.make_host_mesh``. The slot engine
+  and paged run (b) on the mesh with the kernels, each against its
+  no-mesh plain run (tokens up to the tie rule, energies within rtol
+  1e-6, serve-wide counters bitwise); kernels K1 and K3 in the
+  accountant, on gathered operands, and no K2 or K4 (a mesh decode
+  computes the plain route, as the JAX package's does). The trainer on
+  the mesh, 3 steps against 3 no-mesh steps (rtol 1e-4), with each
+  run's peak memory. And the dry-run's ``train_4k`` and ``decode_32k``
+  cells of Qwen1.5-0.5B on the 16x16 mesh of a fake 256-rank group, in
+  a process of its own on the host, their roofline terms printed
+  against the H100 constants.
 * training, ``repro_torch.launch.train.train``: Qwen1.5-0.5B at full
   width from float32 masters (seed 0) on ``SyntheticLM`` batches of 8 x
   256, 8 AdamW steps with the power monitor on every step and a
@@ -726,22 +738,25 @@ def phase_sweep_busy(sweep: dict, sites) -> None:
 
 
 #: phase_zoo: the LM zoo at its published widths, each with the layers
-#: kept: Granite-3.0-2B cut to 8 of its 40 layers (time: whole, it took a
+#: kept: Granite-3.0-2B cut to 4 of its 40 layers (time: whole, it took a
 #: large share of the phase on an NVIDIA H100 80GB HBM3 at 700 W, and
-#: phase_bench needs the room), Phi-3.5-MoE to 4 of its 32 layers (42 B
+#: phase_bench and phase_mesh need the room; 8 before phase_mesh),
+#: Phi-3.5-MoE to 4 of its 32 layers (42 B
 #: parameters do not fit one 80 GB card in bf16), DeepSeek-67B to 2 of its
-#: 95; MiniCPM3-4B to 8 of 62 (time: traced whole it took 53 s of the
-#: script's ~600 on that card; :data:`ZOO_SERVING` serves it whole);
+#: 95; MiniCPM3-4B to 4 of 62 (time: traced whole it took 53 s of the
+#: script's ~600 on that card; 8 before phase_mesh; :data:`ZOO_SERVING`
+#: serves it whole);
 #: DeepSeek-V2-Lite to 4 of 27 (the dense head layer and 3 MoE layers:
 #: 15.7 B parameters are ~94 GB as float32 masters plus bf16);
-#: RecurrentGemma-9B to 14 of 38 (4 groups and the 2-block tail; memory
-#: and time); xLSTM-1.3B to 16 of 48 (2 groups of 7 mLSTM and 1 sLSTM;
-#: time: 40 s whole on that card); MusicGen-medium to 8 of 48 (time);
+#: RecurrentGemma-9B to 8 of 38 (2 groups and the 2-block tail; memory
+#: and time: 14 before phase_mesh); xLSTM-1.3B to 8 of 48 (1 group of 7
+#: mLSTM and 1 sLSTM; time: 40 s whole on that card, 16 layers before
+#: phase_mesh); MusicGen-medium to 4 of 48 (time; 8 before phase_mesh);
 #: Qwen2-VL-72B to 2 of 80 (72 B parameters do not fit one card)
-ZOO = (("granite-3-2b", 8), ("phi3.5-moe-42b-a6.6b", 4),
-       ("deepseek-67b", 2), ("minicpm3-4b", 8),
-       ("deepseek-v2-lite-16b", 4), ("recurrentgemma-9b", 14),
-       ("xlstm-1.3b", 16), ("musicgen-medium", 8), ("qwen2-vl-72b", 2))
+ZOO = (("granite-3-2b", 4), ("phi3.5-moe-42b-a6.6b", 4),
+       ("deepseek-67b", 2), ("minicpm3-4b", 4),
+       ("deepseek-v2-lite-16b", 4), ("recurrentgemma-9b", 8),
+       ("xlstm-1.3b", 8), ("musicgen-medium", 4), ("qwen2-vl-72b", 2))
 ZOO_DECODE_STEPS = 3
 ZOO_SEQ = 16
 
@@ -1372,8 +1387,8 @@ def phase_train() -> dict:
     seen = {"step_ms": [], "monitor_ms": [], "trace_s": [], "extra": 0}
     build, power_trace = tr.build, tr._power_trace
 
-    def checked_build(tc):
-        cfg, opt, step_fn = build(tc)
+    def checked_build(tc, mesh=None):
+        cfg, opt, step_fn = build(tc, mesh)
 
         def step(params, opt_state, batch, i):
             torch.cuda.synchronize()
@@ -1999,7 +2014,7 @@ def record_gaps(eng) -> dict:
 
 
 def serve(params, cfg, backend: str, record: bool = False,
-          telemetry=None, setup=None):
+          telemetry=None, setup=None, mesh=None):
     """Serve the smoke's requests with ``kernel_backend=backend`` (and
     ``ServeConfig.telemetry``; ``setup(engine)`` before the run).
     Returns ``(engine, {uid: request}, wall seconds, gaps)`` (the gaps of
@@ -2008,7 +2023,7 @@ def serve(params, cfg, backend: str, record: bool = False,
 
     eng = ServeEngine(params, cfg, ServeConfig(
         max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE, power_monitor=True,
-        kernel_backend=backend, telemetry=telemetry))
+        kernel_backend=backend, telemetry=telemetry), mesh=mesh)
     if setup is not None:
         setup(eng)
     gaps = record_gaps(eng) if record else {}
@@ -2093,7 +2108,7 @@ def phase_serving():
                          "the plain run")
     if equal == len(done):
         assert_reports_close(eng, ref_eng, "the plain run's")
-    return cfg, params, eng, done, launches
+    return cfg, params, eng, done, launches, (ref_eng, ref_done, gaps)
 
 
 def assert_close(got: float, want: float, ctx: str) -> None:
@@ -2290,7 +2305,7 @@ def paged_requests(vocab: int) -> list[dict]:
 
 
 def serve_paged(params, cfg, requests, backend: str, record: bool = False,
-                telemetry=None, setup=None, **paging):
+                telemetry=None, setup=None, mesh=None, **paging):
     """Serve ``requests`` (``submit`` arguments) on a paged engine (with
     ``ServeConfig.telemetry``; ``setup(engine)`` before the run).
     Returns ``(engine, {uid: request}, wall seconds, gaps, launches)``,
@@ -2304,7 +2319,8 @@ def serve_paged(params, cfg, requests, backend: str, record: bool = False,
     eng = ServeEngine(params, cfg, ServeConfig(
         cache_len=SERVE_CACHE, power_monitor=True, kernel_backend=backend,
         telemetry=telemetry,
-        paging=PagingConfig(page_size=PAGE, classes=classes, **paging)))
+        paging=PagingConfig(page_size=PAGE, classes=classes, **paging)),
+        mesh=mesh)
     if setup is not None:
         setup(eng)
     gaps = record_gaps(eng) if record else {}
@@ -2435,6 +2451,7 @@ def phase_paged_serving(cfg, params, slot_eng, slot_done: dict) -> dict:
         assert_reports_close(eng, ref_eng, "the plain paged run's")
     out["b_ref_wall_s"] = ref_wall
     out["engine"] = eng
+    out["b_ref"] = (ref_eng, ref_done, ref_gaps)
     return out
 
 
@@ -3731,6 +3748,246 @@ def phase_paged_timing(cfg, eng, reqs) -> dict:
     return t
 
 
+#: phase_mesh: the trainer's mesh run (Qwen1.5-0.5B at full width, the
+#: phase_train (a) batch) and the dry-run's two cells on the 16x16 mesh
+MESH_TRAIN_STEPS = 3
+MESH_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+MESH_DRYRUN_TIMEOUT = 480
+
+
+def capture_counters(eng) -> dict:
+    """The serve-wide counters of an engine's accountant, by site."""
+    return {name: (acc.counters, acc.zf_sum)
+            for name, acc in eng.accountant.capture.sites.items()}
+
+
+def start_dryrun(out_dir: str):
+    """The dry-run of MESH_DRYRUN_SHAPES for Qwen1.5-0.5B on the 16x16
+    mesh, in a process of its own (a fake 256-rank group on the host, no
+    card), started now and joined by :func:`finish_dryrun`."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         SERVE_ARCH, "--shape", ",".join(MESH_DRYRUN_SHAPES), "--mesh",
+         "single", "--out", out_dir, "--force"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun(proc, out_dir: str, t0: float) -> dict:
+    """Join the dry-run, check its cells and print their roofline terms
+    against the H100 constants beside this card's name and power limit."""
+    from repro_torch.launch import roofline
+    try:
+        out, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"dry-run exited {proc.returncode}:\n{out}")
+    cells = {}
+    for shape in MESH_DRYRUN_SHAPES:
+        path = Path(out_dir) / f"{SERVE_ARCH}__{shape}__pod1.json"
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {shape}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')}")
+        t = roofline.terms(rec)
+        log(f"phase_mesh (d) dry-run {SERVE_ARCH} x {shape} on 16x16 "
+            f"(fake group of 256 ranks, host; {rec['wall_s']} s): "
+            + roofline.cell_report(SERVE_ARCH, shape,
+                                   results_dir=out_dir))
+        log(f"phase_mesh (d) roofline terms against {roofline.SKU} "
+            f"({roofline.PEAK_FLOPS / 1e12:g} TFLOP/s bf16, HBM "
+            f"{roofline.HBM_BW / 1e12:g} TB/s, NVLink "
+            f"{roofline.NVLINK_BW / 1e9:g} GB/s) on {card_line()}: "
+            f"compute {t['compute_s']!r} s, memory {t['memory_s']!r} s, "
+            f"collective {t['collective_s']!r} s, {t['bottleneck']}-bound,"
+            f" MFU bound {t['mfu_bound']!r}, MODEL_FLOPS / counted "
+            f"{rec['model_to_counted_flops']!r}, peak "
+            f"{t['peak_gib']!r} GiB a rank (fits 80 GB: {t['fits']})")
+        cells[shape] = {"graph": rec["graph"], "memory": rec["memory"],
+                        "terms": t, "wall_s": rec["wall_s"],
+                        "model_to_counted_flops":
+                            rec["model_to_counted_flops"]}
+    log(f"phase_mesh (d) joined the dry-run after "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cells
+
+
+def phase_mesh(cfg, params, slot_ref, paged_ref) -> dict:
+    """The port on a ``DeviceMesh``: the card's 1x1 mesh (NCCL, world
+    size 1, an in-process store), ``make_host_mesh(data=1, model=1)``.
+
+    (a) The slot engine on the mesh (``kernel_backend="auto"``) with
+    phase_serving's requests against its no-mesh ``"ref"`` run
+    (``slot_ref``: engine, requests, logit gaps): tokens
+    equal up to the tie rule, retired energies within rtol 1e-6, the
+    serve-wide counters bitwise; K1 (prefill accounting) and K3 (the
+    sampled decode accounting) launched on gathered operands, K2 and K4
+    not at all (a mesh decode computes ``"ref"``).
+    (b) Paged run (b) on the mesh, under the same checks, against
+    phase_paged_serving's plain run (b) (``paged_ref``).
+    (c) The trainer on the mesh, batch 8 x seq 256, MESH_TRAIN_STEPS
+    AdamW steps against as many no-mesh steps: losses and ``grad_norm``
+    within rtol 1e-4 (phase_train (b)'s), and each run's peak memory.
+    (d) The dry-run of two cells, started in its own process at the
+    phase's start and joined at its end (:func:`finish_dryrun`).
+    Each sub-phase logs its wall time; the mesh's group is destroyed at
+    the end, so later phases run as before."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.power_counters import kernel as k1
+    from repro_torch.kernels.zvg_matmul import kernel as kz
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import spmd
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    dr_dir = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
+    dr = start_dryrun(dr_dir)
+    counted = (k1.fused_counters_cuda, kz.gated_row_matmul_cuda,
+               kz.fused_matmul_counters_cuda, kz.fused_paged_attention_cuda)
+    out = {}
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        log(f"phase_mesh: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+            f" on {mesh.device_type}, backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+
+        def check_launches(launches, what):
+            if not (launches["fused_counters_cuda"] > 0
+                    and launches["fused_matmul_counters_cuda"] > 0
+                    and launches["gated_row_matmul_cuda"] == 0
+                    and launches["fused_paged_attention_cuda"] == 0):
+                raise AssertionError(f"{what}: launches {launches}")
+
+        # (a) the slot engine
+        t0 = time.perf_counter()
+        ref_eng, ref_done, gaps = slot_ref
+        spmd.reset_counts()
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        eng, done, wall, _ = serve(params, cfg, "auto", mesh=mesh)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        check_launches(launches, "phase_mesh (a)")
+        check_served(done, cfg)
+        equal = compare_runs(done, ref_done, gaps, SERVE_STOCHASTIC,
+                             "the no-mesh plain run")
+        if capture_counters(eng) != capture_counters(ref_eng):
+            raise AssertionError("phase_mesh (a): serve-wide counters "
+                                 "differ from the no-mesh run's")
+        out["a"] = {"launches": launches, "wall_s": wall, "equal": equal,
+                    "tokens": eng.stats["tokens"],
+                    "decode_steps": eng.stats["decode_steps"],
+                    "spmd": dict(spmd.COUNTS)}
+        log(f"phase_mesh (a) slot engine on the 1x1 mesh: {wall:.3f} s "
+            f"({eng.stats['tokens'] / wall:.1f} tok/s), launches "
+            f"{json.dumps(launches)}, {equal} of {len(done)} requests' "
+            f"tokens equal, serve-wide counters bitwise; DTensor helpers "
+            f"{dict(spmd.COUNTS)}; sub-phase {time.perf_counter() - t0:.1f}"
+            f" s")
+        del eng, ref_eng
+
+        # (b) paged run (b)
+        t0 = time.perf_counter()
+        reqs = paged_requests(cfg.vocab)
+        kw = dict(num_pages=65, max_rows=PAGED_ROWS, prefill_chunk=64,
+                  prefix_cache=True)
+        ref_eng, ref_done, gaps = paged_ref
+        spmd.reset_counts()
+        eng, done, wall, _, launches = serve_paged(params, cfg, reqs, "auto",
+                                                   mesh=mesh, **kw)
+        check_launches(launches, "phase_mesh (b)")
+        check_served(done, cfg, PAGED_REQUESTS)
+        equal = compare_runs(done, ref_done, gaps, PAGED_STOCHASTIC,
+                             "the no-mesh plain paged run (b)")
+        if capture_counters(eng) != capture_counters(ref_eng):
+            raise AssertionError("phase_mesh (b): serve-wide counters "
+                                 "differ from the no-mesh run's")
+        st = eng.stats
+        out["b"] = {"launches": launches, "wall_s": wall, "equal": equal,
+                    "tokens": st["tokens"], "decode_steps": st["decode_steps"],
+                    "chunk_calls": st["chunk_calls"],
+                    "prefix_hit_requests": st["prefix_hit_requests"],
+                    "spmd": dict(spmd.COUNTS)}
+        log(f"phase_mesh (b) paged run (b) on the 1x1 mesh: {wall:.3f} s "
+            f"({st['tokens'] / wall:.1f} tok/s), launches "
+            f"{json.dumps(launches)}, {equal} of {len(done)} requests' "
+            f"tokens equal, serve-wide counters bitwise; chunk_calls "
+            f"{st['chunk_calls']}, prefix hits {st['prefix_hit_requests']};"
+            f" sub-phase {time.perf_counter() - t0:.1f} s")
+        del eng, ref_eng
+
+        # (c) the trainer
+        t0 = time.perf_counter()
+        tc = tr.TrainConfig(arch=SERVE_ARCH, steps=MESH_TRAIN_STEPS,
+                            seq=TRAIN_SEQ, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                            warmup=TRAIN_WARMUP)
+        runs = {}
+        # the plain run twice: its run-to-run spread (the card's
+        # nondeterministic accumulations, tools/train_determinism.py)
+        # beside the mesh run's gap
+        for name, m in (("plain", None), ("plain_again", None),
+                        ("mesh", mesh)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            hist = tr.train(tc, m)["history"]
+            torch.cuda.synchronize()
+            runs[name] = {"history": [{k: h[k] for k in
+                                       ("loss", "grad_norm", "dt")}
+                                      for h in hist],
+                          "wall_s": time.perf_counter() - t1,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30}
+        for got, want in zip(runs["mesh"]["history"],
+                             runs["plain"]["history"]):
+            for k in ("loss", "grad_norm"):
+                if not (np.isfinite(got[k])
+                        and abs(got[k] - want[k]) <= 1e-4 * abs(want[k])):
+                    raise AssertionError(f"phase_mesh (c) {k}: {got[k]!r} "
+                                         f"vs {want[k]!r}")
+        for name in ("plain_again", "mesh"):
+            runs[name]["max_rel_gap"] = max(
+                abs(got[k] - want[k]) / abs(want[k])
+                for got, want in zip(runs[name]["history"],
+                                     runs["plain"]["history"])
+                for k in ("loss", "grad_norm"))
+        out["c"] = runs
+        log(f"phase_mesh (c) trainer on the 1x1 mesh, {MESH_TRAIN_STEPS} "
+            f"steps at batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: losses "
+            f"{[h['loss'] for h in runs['mesh']['history']]} against "
+            f"{[h['loss'] for h in runs['plain']['history']]} (rtol 1e-4),"
+            f" largest relative gap {runs['mesh']['max_rel_gap']:.3e}, "
+            f"plain against plain {runs['plain_again']['max_rel_gap']:.3e};"
+            f" step s {[round(h['dt'], 4) for h in runs['mesh']['history']]}"
+            f" against {[round(h['dt'], 4) for h in runs['plain']['history']]}"
+            f", peak {runs['mesh']['peak_gib']:.2f} GiB against "
+            f"{runs['plain']['peak_gib']:.2f}; sub-phase "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if dr.poll() is None and sys.exc_info()[0] is not None:
+            dr.kill()
+            dr.communicate()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["d"] = finish_dryrun(dr, dr_dir, t0)
+    log(f"phase_mesh: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -3773,7 +4030,7 @@ def main() -> int:
     mlayers, mlaunches, _ = run_main_path("mobilenet", designs, 28)
     msites, e = check_sites("mobilenet", mlayers, designs)
     err = max(err, e)
-    cfg, params, eng, slot_done, serve_launches = phase_serving()
+    cfg, params, eng, slot_done, serve_launches, slot_ref = phase_serving()
     paged = phase_paged_serving(cfg, params, eng, slot_done)
     telemetry = phase_telemetry(cfg, params)
     quick_launches, e5, e6 = phase_quickstart()
@@ -3785,6 +4042,11 @@ def main() -> int:
     sweep, sweep_sites = phase_sweep()
     zoo = phase_zoo()
     zoo_serving = phase_zoo_serving()
+    mesh = phase_mesh(cfg, params, slot_ref, paged.pop("b_ref"))
+    mesh_launches = {fn: {r: mesh[r]["launches"][fn] for r in "ab"} for fn in
+                     ("fused_counters_cuda", "gated_row_matmul_cuda",
+                      "fused_matmul_counters_cuda",
+                      "fused_paged_attention_cuda")}
 
     breakdown = phase_breakdown("resnet50", designs)
     k1 = phase_timing(sites, msites)
@@ -3856,6 +4118,8 @@ def main() -> int:
         "train": train,
         "launches_bench": bench["launches"]["fused_counters_cuda"],
         "bench": bench,
+        "launches_mesh": mesh_launches["fused_counters_cuda"],
+        "mesh": mesh,
     }, {
         "name": "gated_row_matmul",
         "route": "cuda",
@@ -3874,6 +4138,7 @@ def main() -> int:
         "launches_telemetry": telemetry_launches(telemetry,
                                                  "gated_row_matmul_cuda"),
         "launches_bench": bench["launches"]["gated_row_matmul_cuda"],
+        "launches_mesh": mesh_launches["gated_row_matmul_cuda"],
         "zoo": zoo,
         "zoo_serving": zoo_serving,
         "max_abs_err": err2,
@@ -3911,6 +4176,7 @@ def main() -> int:
         "launches_telemetry": telemetry_launches(
             telemetry, "fused_matmul_counters_cuda"),
         "launches_bench": bench["launches"]["fused_matmul_counters_cuda"],
+        "launches_mesh": mesh_launches["fused_matmul_counters_cuda"],
         "telemetry": telemetry,
         "ms_by_kernel": k3["ms_by_kernel"],
         "k2_at_product_shape_ms": k3["k2_at_product_shape_ms"],
@@ -3929,6 +4195,7 @@ def main() -> int:
         "launches_zoo_serving": zoo_launches(zoo_serving,
                                              "fused_paged_attention_cuda"),
         "launches_bench": bench["launches"]["fused_paged_attention_cuda"],
+        "launches_mesh": mesh_launches["fused_paged_attention_cuda"],
         "decode_steps_runs": {k: paged[k]["decode_steps"] for k in "abc"},
         "max_abs_err": err4,
         "max_rel_err": rel4,

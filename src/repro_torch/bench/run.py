@@ -15,6 +15,8 @@ import argparse
 import sys
 import traceback
 
+from repro_torch.launch import roofline
+
 from . import (activity_reduction, bic_variants, counter_kernels,
                design_sweep, fig2_distributions, fig45_per_layer,
                overall_savings, overhead_scaling, power_monitor_lm,
@@ -61,8 +63,13 @@ def run_suites(names: list[str], quick: bool = False,
             failures += 1
             print(f"# {name} FAILED:")
             traceback.print_exc()
-    print("# roofline summary unavailable: it waits for the port of "
-          "launch/roofline.py (ROADMAP queue 1 step 7)")
+    # roofline summary appended if dry-run results exist
+    try:
+        print("# ===== roofline (from dry-run cache) =====")
+        roofline.print_summary()
+    except Exception:                                    # noqa: BLE001
+        print("# roofline summary unavailable (run "
+              "repro_torch.launch.dryrun)")
     return failures
 
 

@@ -13,13 +13,18 @@ which runs ``"auto"``: on the card the gated decode matmul (K2) and the
 fused matmul + counter pass (K3), on the CPU their plain versions. Its
 greedy tokens must equal the ``"ref"`` cells' -- the kernel-equivalence
 contract -- and the paged cell's must equal them too; a mismatch fails
-the run. ``--mesh`` is refused: the port serves on one device.
+the run. ``--mesh DATAxMODEL`` adds the sharded cell
+``serve_b<n>_mesh<D>x<M>``: the power cell's workload through the engine
+on a host mesh (:func:`repro_torch.launch.mesh.make_host_mesh`; a world of
+one process starts its own group), whose greedy tokens must equal the
+single-device cells'.
 
 Decode-step wall time excludes warm-up (one warm-up workload runs first).
 The workload is the smoke Qwen1.5-0.5B at float32 with random weights
 from ``torch.Generator`` seed 0; :func:`_serve` takes any weights.
 
 Run:  python -m repro_torch.bench.serve_throughput [--quick] [--device cpu]
+          [--mesh 1x1]
 """
 from __future__ import annotations
 
@@ -28,8 +33,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import SMOKES
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.serve import PagingConfig, ServeConfig, ServeEngine
 
@@ -58,20 +65,21 @@ def _run(engine, prompts):
 
 
 def _serve(params, cfg, prompts, slots: int, power: bool,
-           backend: str = "ref", device="cuda"):
+           backend: str = "ref", device="cuda", mesh=None):
     """``(engine, finished requests, wall s)`` of the workload through
-    ``slots`` slots on the ``backend`` route."""
+    ``slots`` slots on the ``backend`` route (on ``mesh`` when given)."""
     return _run(ServeEngine(params, cfg, ServeConfig(
         max_slots=slots, cache_len=CACHE_LEN, power_monitor=power,
-        kernel_backend=backend, device=device)), prompts)
+        kernel_backend=backend, device=device), mesh=mesh), prompts)
+
+
+def _parse_mesh(spec: str, device):
+    data, model = (int(v) for v in spec.lower().split("x"))
+    return make_host_mesh(data=data, model=model, device=device)
 
 
 def main(quick: bool = False, mesh_spec: str | None = None,
          device="cuda") -> None:
-    if mesh_spec:
-        raise SystemExit(
-            f"--mesh {mesh_spec}: the sharded engine is not ported yet; "
-            f"the port serves on one device (ROADMAP queue 1 step 7)")
     cfg = SMOKES[ARCH].with_(compute_dtype="float32")
     with torch.no_grad():
         params = lm.init_model(
@@ -79,8 +87,9 @@ def main(quick: bool = False, mesh_spec: str | None = None,
     prompts = _workload(cfg)
     widths = [1, 4] if quick else [1, 2, 4, 8]
 
-    def serve(slots, power, backend="ref"):
-        return _serve(params, cfg, prompts, slots, power, backend, device)
+    def serve(slots, power, backend="ref", mesh=None):
+        return _serve(params, cfg, prompts, slots, power, backend, device,
+                      mesh)
 
     serve(max(widths), power=False)                  # warm-up
     tokens_ref = None
@@ -146,14 +155,36 @@ def main(quick: bool = False, mesh_spec: str | None = None,
             "fused-kernel greedy outputs differ from the ref backend "
             "(kernel-equivalence violated)")
 
+    if mesh_spec:
+        started = not dist.is_initialized()
+        mesh = _parse_mesh(mesh_spec, device)
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        serve(slots, power=False, mesh=mesh)          # sharded warm-up
+        engine, finished, dt = serve(slots, power=True, mesh=mesh)
+        toks = {r.uid: r.generated for r in finished}
+        agg = engine.trace_report().summary()
+        row(f"serve_b{slots}_mesh{shape['data']}x{shape['model']}",
+            dt / max(engine.stats["decode_steps"], 1) * 1e6,
+            f"{engine.stats['tokens'] / dt:.0f} tok/s sharded / "
+            f"{agg['total_saving'] * 100:.2f}% total saving "
+            f"(same tokens: {toks == tokens_ref})")
+        if started:                # the one-process group the mesh began
+            dist.destroy_process_group()
+        if toks != tokens_ref:
+            # a changed greedy token is a sharding bug, not noise
+            raise SystemExit(
+                "sharded greedy outputs differ from the single-device "
+                "engine (mesh bit-exactness violated)")
+
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="two batch widths only (CI smoke)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="a sharded-engine cell: refused, the port "
-                         "serves on one device (ROADMAP queue 1 step 7)")
+                    help="add a sharded-engine cell over a host mesh of "
+                         "this shape (e.g. 1x1 on one card; a larger mesh "
+                         "needs a process group of that many ranks)")
     ap.add_argument("--device", default="cuda",
                     help="device to run on (cuda by default)")
     args = ap.parse_args()

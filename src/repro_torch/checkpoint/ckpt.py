@@ -16,6 +16,13 @@ named tuples of tensors), in the JAX package's layout
 
 bfloat16 leaves, which numpy lacks, are stored as their uint16 bits and
 restored from them by the dtype in ``meta.json``.
+
+Distributed trees (DTensor leaves, a mesh run) are saved as full
+tensors: every rank gathers each leaf, rank 0 writes, and the ranks meet
+at a barrier before the next save or restore reads. A restore re-places
+the arrays onto the target's layout, or onto ``shardings`` -- a tree of
+:class:`repro_torch.runtime.sharding.NamedSharding` of another mesh (an
+elastic restart), as the JAX package's ``restore(..., shardings)`` does.
 """
 from __future__ import annotations
 
@@ -28,7 +35,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
+from repro_torch.runtime import spmd
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 LATEST = "LATEST"
@@ -48,7 +58,7 @@ def _structure_fingerprint(tree) -> dict:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().to("cpu", copy=True)
+    t = spmd.local(t).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.uint16)
     return t.numpy()
@@ -59,6 +69,18 @@ def _from_host(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return t.view(torch.bfloat16) if dtype_name == "bfloat16" else t
 
 
+def _place(leaf: torch.Tensor, target, sharding):
+    """A restored leaf in ``target``'s dtype, on its device -- or
+    distributed by ``sharding``, or as a DTensor ``target`` is."""
+    if sharding is None and not spmd.is_dist(target):
+        return leaf.to(device=target.device, dtype=target.dtype)
+    mesh = sharding.mesh if sharding is not None else target.device_mesh
+    pl = (sharding.placements if sharding is not None
+          else target.placements)
+    return distribute_tensor(
+        leaf.to(device=mesh.device_type, dtype=target.dtype), mesh, pl)
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3,
                  async_save: bool = True):
@@ -66,6 +88,7 @@ class Checkpointer:
         self.keep = keep
         self.async_save = async_save
         self._thread: threading.Thread | None = None
+        self._sync = False         # a distributed save awaits its barrier
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
@@ -74,10 +97,15 @@ class Checkpointer:
         asynchronous; its leaves are copied to the host before this
         returns, so the caller may change them at once)."""
         self.wait()
-        host_leaves = [_to_host(l) for l in tree_leaves(tree)]
+        leaves = tree_leaves(tree)
+        host_leaves = [_to_host(l) for l in leaves]
         meta = _structure_fingerprint(tree)
         meta["step"] = int(step)
         meta["time"] = time.time()
+        if any(spmd.is_dist(l) for l in leaves):
+            self._sync = dist.get_world_size() > 1
+            if dist.get_rank() != 0:
+                return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write, args=(int(step), host_leaves, meta),
@@ -111,10 +139,14 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
 
     def wait(self):
-        """Join the background write, if one is running."""
+        """Join the background write, if one is running (after a
+        distributed save, then meet the other ranks)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sync:
+            dist.barrier()
+            self._sync = False
 
     # ---------------------------------------------------------- restore
     def latest_step(self) -> int | None:
@@ -127,10 +159,12 @@ class Checkpointer:
             return None
         return int(name.split("_")[1])
 
-    def restore(self, step: int, target: Any) -> Any:
+    def restore(self, step: int, target: Any, shardings: Any = None) -> Any:
         """Step ``step`` as a tree shaped like ``target``, each leaf new,
-        on its target leaf's device and in its dtype; raises
-        ``ValueError`` when the saved shapes are not the target's."""
+        on its target leaf's device and in its dtype -- distributed as the
+        target leaf is, or by ``shardings`` (a tree of ``NamedSharding``
+        shaped like ``target``) when given; raises ``ValueError`` when the
+        saved shapes are not the target's."""
         self.wait()
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
@@ -144,9 +178,11 @@ class Checkpointer:
         with np.load(os.path.join(path, "shard_0000.npz")) as data:
             leaves = [_from_host(data[f"leaf_{i}"], meta["dtypes"][i])
                       for i in range(meta["n_leaves"])]
+        targets = tree_leaves(target)
+        placed = (tree_leaves(shardings) if shardings is not None
+                  else [None] * len(targets))
         return tree_unflatten(target, [
-            l.to(device=t.device, dtype=t.dtype)
-            for l, t in zip(leaves, tree_leaves(target))])
+            _place(l, t, s) for l, t, s in zip(leaves, targets, placed)])
 
     def restore_latest(self, target: Any):
         """``(step, tree)`` of the latest step, or ``(None, None)``."""

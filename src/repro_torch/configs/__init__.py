@@ -8,6 +8,7 @@ backbones."""
 from . import (deepseek_67b, deepseek_v2_lite, granite_3_2b, minicpm3_4b,
                musicgen_medium, phi3_5_moe, qwen1_5_0_5b, qwen2_vl_72b,
                recurrentgemma_9b, xlstm_1_3b)
+from .shapes import SHAPES, ShapeSpec, applicable, input_specs  # noqa: F401
 
 _MODULES = [qwen1_5_0_5b, granite_3_2b, deepseek_67b, minicpm3_4b,
             phi3_5_moe, deepseek_v2_lite, xlstm_1_3b, recurrentgemma_9b,

@@ -1,5 +1,5 @@
 """The trainer, the port of the JAX package's
-``repro.launch.train`` on one device.
+``repro.launch.train``.
 
 It wires together the config registry, AdamW (with gradient
 accumulation and compression), the deterministic data pipeline, atomic
@@ -12,8 +12,15 @@ power-counter kernel (K1) on the card.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --smoke --steps 50 --batch 8 --seq 256 --ckpt-dir /tmp/ck
 
-It runs on the card unless ``--device cpu`` is given. A mesh and
-``--model-parallel`` above 1 are refused: sharding is not ported yet.
+It runs on the card unless ``--device cpu`` is given. Given a mesh
+(``train(tc, mesh)``, a ``DeviceMesh`` of
+:func:`repro_torch.launch.mesh.make_host_mesh`) or ``--model-parallel``
+above 1 (which builds ``make_host_mesh(model=...)``, starting a process
+group of one process where none exists), the parameters and the AdamW
+state are distributed by the training rules (FSDP over the data axes, TP
+over "model"; :mod:`repro_torch.runtime.sharding`), each batch over the
+data axes, and the residual stream is constrained by ``make_constrain``.
+Without either, no process group is started and nothing is distributed.
 """
 from __future__ import annotations
 
@@ -29,9 +36,12 @@ from repro_torch.apps import check_device
 from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.runtime import fault
+from repro_torch.runtime import sharding as rsh
+from repro_torch.runtime import spmd
 
 log = logging.getLogger("repro_torch.train")
 
@@ -60,21 +70,43 @@ class TrainConfig:
     device: str = "cuda"
 
 
-def build(tc: TrainConfig):
-    """``(cfg, optimizer, train_step)`` of a run."""
+def build(tc: TrainConfig, mesh=None):
+    """``(cfg, optimizer, train_step)`` of a run; on a mesh the step
+    constrains the residual stream (``make_constrain``) and runs with
+    plain tensors meeting DTensors as replicated ones."""
     cfg = get_config(tc.arch, smoke=tc.smoke)
     opt = AdamW(lr=cosine_schedule(tc.lr, tc.warmup, tc.steps),
                 compress=tc.compress_grads)
-    step_fn = lm.make_train_step(cfg, opt, grad_accum=tc.grad_accum,
-                                 monitor=tc.power_monitor)
+    step_fn = lm.make_train_step(
+        cfg, opt, grad_accum=tc.grad_accum, monitor=tc.power_monitor,
+        constrain=rsh.make_constrain(mesh) if mesh is not None else lm._id)
+    if mesh is not None:
+        inner = step_fn
+
+        def step_fn(*args):
+            with spmd.on_mesh(mesh):
+                return inner(*args)
     return cfg, opt, step_fn
 
 
-def init_state(cfg, opt: AdamW, device, seed: int):
+def init_state(cfg, opt: AdamW, device, seed: int, mesh=None):
     """Float32 masters drawn from ``seed`` on ``device``, and the
-    optimiser's zero state."""
+    optimiser's zero state; on a mesh both distributed by
+    :func:`state_shardings`."""
     params = lm.init_model(cfg, torch.Generator(device).manual_seed(seed))
-    return params, opt.init(params)
+    opt_state = opt.init(params)
+    if mesh is None:
+        return params, opt_state
+    pshard, oshard = state_shardings(cfg, mesh, params, opt_state)
+    return rsh.device_put(params, pshard), rsh.device_put(opt_state, oshard)
+
+
+def state_shardings(cfg, mesh, params, opt_state):
+    """``(param shardings, AdamW-state shardings)`` by the training
+    rules: FSDP over the data axes, TP over "model"."""
+    axes = lm.param_axes(cfg)
+    return (rsh.param_shardings(mesh, params, axes),
+            rsh.opt_state_shardings(mesh, params, opt_state, axes))
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -99,7 +131,9 @@ def _power_trace(tc: TrainConfig, cfg, params, batch, step: int,
         return lm.logits_fn(w, cfg, lm.apply_model(w, cfg, x, pos)[0])
 
     with torch.no_grad():
-        rep = trace_model(forward, lm.compute_weights(params, cfg),
+        # a trace is an analysis pass: on a mesh it reads gathered weights
+        rep = trace_model(forward, lm.compute_weights(rsh.gather(params),
+                                                      cfg),
                           *lm.model_input(cfg, batch),
                           name=f"{cfg.name}@{step}", capture=capture)
     agg = rep.summary()
@@ -121,21 +155,23 @@ def train(tc: TrainConfig, mesh=None) -> dict:
     there is one, then train to ``steps``. Returns the final loss, the
     history (each step's loss, ``grad_norm``, the other metrics and its
     wall time), the power traces, the straggler steps and the median
-    step time."""
-    if mesh is not None or tc.model_parallel > 1:
-        raise NotImplementedError(
-            "mesh not ported yet: the port trains on one device "
-            "(ROADMAP queue 1 step 7)")
+    step time. With ``mesh`` (or ``tc.model_parallel > 1``) the run is
+    distributed (see the module doc); every rank of the mesh runs it."""
     device = check_device(tc.device, "the trainer")
-    cfg, opt, step_fn = build(tc)
-    params, opt_state = init_state(cfg, opt, device, tc.seed)
+    if mesh is None and tc.model_parallel > 1:
+        mesh = make_host_mesh(model=tc.model_parallel, device=tc.device)
+    cfg, opt, step_fn = build(tc, mesh)
+    params, opt_state = init_state(cfg, opt, device, tc.seed, mesh)
 
     ckpt = Checkpointer(tc.ckpt_dir) if tc.ckpt_dir else None
     start_step = 0
     if ckpt is not None:
         latest = ckpt.latest_step()
         if latest is not None:
-            params, opt_state = ckpt.restore(latest, (params, opt_state))
+            params, opt_state = ckpt.restore(
+                latest, (params, opt_state),
+                None if mesh is None
+                else state_shardings(cfg, mesh, params, opt_state))
             start_step = latest + 1
             log.info("resumed from checkpoint step %d", latest)
 
@@ -150,9 +186,12 @@ def train(tc: TrainConfig, mesh=None) -> dict:
         for step in range(start_step, tc.steps):
             timer.start()
             batch = batch_to(data.batch(step), device)
+            if mesh is not None:
+                batch = rsh.device_put(batch,
+                                       rsh.batch_shardings(mesh, batch))
             params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                  step)
-            rec = {k: float(v) for k, v in metrics.items()}
+            rec = {k: float(spmd.local(v)) for k, v in metrics.items()}
             dt = timer.stop(step)
             metrics_hist.append({"step": step, **rec, "dt": dt})
             if step % 10 == 0 or step == tc.steps - 1:

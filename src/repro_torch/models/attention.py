@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.runtime import sharding as rsh
+from repro_torch.runtime import spmd
 from repro_torch.trace import interpret
 
 NEG_INF = -1e30
@@ -28,7 +30,38 @@ NEG_INF = -1e30
 def _group_q(q: torch.Tensor, hkv: int) -> torch.Tensor:
     """``[B, S, H, D] -> [B, S, Hkv, rep, D]``."""
     b, s, h, d = q.shape
-    return q.reshape(b, s, hkv, h // hkv, d)
+    return spmd.reshape(q, b, s, hkv, h // hkv, d)
+
+
+def _try_constrain(x, spec):
+    """Best-effort sharding constraint: ``x`` redistributed to ``spec``
+    (an entry a mesh axis name, a tuple of them, ``None``, or the
+    sentinel ``"dp"``, which resolves to ``("pod", "data")``, then
+    ``"data"``, then replicated) on the mesh of the DTensor ``x``; a
+    plain tensor, or a spec whose axes the mesh lacks, passes as it is
+    -- the JAX package's ``_try_constrain``."""
+    if not spmd.is_dist(x):
+        return x
+    mesh = x.device_mesh
+    names = set(mesh.mesh_dim_names or ())
+    for dpv in (("pod", "data"), "data", None):
+        s = [dpv if e == "dp" else e for e in spec]
+        axes = [a for e in s if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))]
+        if all(a in names for a in axes):
+            want = rsh.placements(mesh, rsh.P(*s))
+            if list(x.placements) == want:
+                return x
+            return x.redistribute(mesh, want)
+    return x
+
+
+def tp_heads_constrain(x):
+    """Pin a projected ``[B, S, H, D]`` tensor to (batch=dp,
+    heads=model): the project-then-gather layout of the JAX package's
+    ``tp_heads_constrain`` (defined there and here, called by neither
+    stack)."""
+    return _try_constrain(x, ("dp", None, "model", None))
 
 
 def _softcap(scores: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -113,12 +146,16 @@ def sliding_window_attention(q, k, v, *, window: int, scale=None,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
-                     softcap: float = 0.0):
+                     softcap: float = 0.0, constrain_q: bool = True):
     """Single-token decode: ``q [B, 1, H, D]`` against ``[B, Smax, Hkv,
     D]`` caches holding ``cache_len [B]`` valid entries per row."""
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     qg = _group_q(q, hkv)
+    # on a mesh, q takes the cache's layout (head dim over "model"): the
+    # score contraction is partial sums, not a gather of the cache
+    if constrain_q:
+        qg = _try_constrain(qg, (None, None, None, None, "model"))
     scale = scale if scale is not None else d ** -0.5
     scores = interpret.einsum("bqkrd,bskd->bkrqs", qg,
                               k_cache).float() * scale
@@ -127,12 +164,15 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
     mask = kpos[None, :] < cache_len[:, None]            # [B, Smax]
     scores = torch.where(mask[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    # on a mesh the (small) probabilities are gathered but for the batch
+    # dim, so the product meets the cache in its own layout
+    probs = spmd.unshard_dims(probs, (1, 2, 3, 4))
     out = interpret.einsum("bkrqs,bskd->bqkrd", probs, v_cache)
     return out.reshape(b, 1, h, v_cache.shape[-1])
 
 
 def paged_chunk_attention(q, k_cache, v_cache, positions_q, *, scale=None,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0, constrain_q: bool = True):
     """Multi-token causal attention of a paged prefill chunk: ``q [B, C,
     H, D]`` against gathered caches ``[B, Smax, Hkv, D]``. Query ``i``
     sits at absolute position ``positions_q[b, i]`` and attends to cache
@@ -143,6 +183,8 @@ def paged_chunk_attention(q, k_cache, v_cache, positions_q, *, scale=None,
     b, sq, h, d = q.shape
     hkv = k_cache.shape[2]
     qg = _group_q(q, hkv)
+    if constrain_q:
+        qg = _try_constrain(qg, (None, None, None, None, "model"))
     scale = scale if scale is not None else d ** -0.5
     scores = interpret.einsum("bqkrd,bskd->bkrqs", qg,
                               k_cache).float() * scale

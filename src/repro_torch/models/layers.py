@@ -1,8 +1,10 @@
 """Parameter inits and the common transformer layers.
 
-Parameters are plain nested dicts of tensors (the JAX package's
-``Param`` wrappers and logical axes have no counterpart: the port does
-not shard). Inits draw from an explicit ``torch.Generator`` on its own
+Parameters are plain nested dicts of tensors; their logical axes (the
+JAX package's ``Param.axes``) are a tree of their own,
+:func:`repro_torch.models.lm.param_axes`, which the sharding rules of
+:mod:`repro_torch.runtime.sharding` resolve on a mesh (where the leaves
+become DTensors). Inits draw from an explicit ``torch.Generator`` on its own
 device; they need not reproduce ``jax.random`` -- weights that must
 match the JAX package are carried across by :mod:`.convert`.
 """

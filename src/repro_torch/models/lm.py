@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core import monitor as pm_monitor
 from repro_torch.core import systolic
+from repro_torch.runtime import spmd
 from repro_torch.trace import interpret
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -71,6 +72,115 @@ def init_model(cfg: ArchConfig, gen: torch.Generator) -> dict:
     elif not cfg.tie_embeddings:
         p["unembed"] = L.dense_param(cfg.d_model, cfg.vocab, gen)
     return p
+
+
+# ---------------------------------------------------------- logical axes
+def _norm_axes(kind: str) -> dict:
+    return {"scale": (None,)} if kind == "rms" else {"scale": (None,),
+                                                      "bias": (None,)}
+
+
+def _mlp_axes(gated: bool = True) -> dict:
+    p = {"up": ("embed", "ff")}
+    if gated:
+        p["gate"] = ("embed", "ff")
+    p["down"] = ("ff", "embed")
+    return p
+
+
+def _mixer_axes(cfg: ArchConfig, mixer: str) -> dict:
+    conv = {"w": (None, "ff"), "b": ("ff",)}
+    if mixer in ("attn", "local"):
+        p = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+             "wv": ("embed", "heads"), "wo": ("heads", "embed")}
+        if cfg.qkv_bias:
+            p.update(bq=("heads",), bk=("heads",), bv=("heads",))
+        return p
+    if mixer == "mla":
+        p = {"w_dkv": ("embed", None), "kv_norm": _norm_axes("rms"),
+             "w_kr": ("embed", None), "w_uk": (None, "heads", None),
+             "w_uv": (None, "heads", None), "wo": ("heads", "embed")}
+        if cfg.mla.q_lora_rank:
+            p.update(w_dq=("embed", None), q_norm=_norm_axes("rms"),
+                     w_uq=(None, "heads", None))
+        else:
+            p["wq"] = ("embed", "heads", None)
+        return p
+    if mixer == "rglru":
+        return {"in_x": ("embed", "ff"), "in_gate": ("embed", "ff"),
+                "conv": conv,
+                "rglru": {"w_a": ("ff", None), "b_a": (None,),
+                          "w_x": ("ff", None), "b_x": (None,),
+                          "lambda": (None,)},
+                "out": ("ff", "embed")}
+    if mixer == "mlstm":
+        return {"up": ("embed", "ff"), "up_gate": ("embed", "ff"),
+                "conv": conv, "wq": ("ff", None), "wk": ("ff", None),
+                "wv": (None, "heads_ff"), "wi": ("ff", None),
+                "wf": ("ff", None), "bi": (None,), "bf": (None,),
+                "skip_scale": (None,), "norm": _norm_axes("rms"),
+                "down": ("ff", "embed")}
+    if mixer == "slstm":
+        return {"conv": conv, "w": ("embed", "ff"),
+                "r": ("heads", None, None), "b": (None,),
+                "norm": _norm_axes("rms"), "up": ("embed", "ff"),
+                "down": ("ff", "embed")}
+    raise ValueError(mixer)
+
+
+def _block_axes(cfg: ArchConfig, spec: str) -> dict:
+    mixer, ffn = T.parse_spec(spec)
+    p = {"norm1": _norm_axes(cfg.norm), "mixer": _mixer_axes(cfg, mixer)}
+    if ffn == "moe":
+        p["norm2"] = _norm_axes(cfg.norm)
+        p["ffn"] = {"router": ("embed", None),
+                    "w_gate": ("expert", "embed", "ff"),
+                    "w_up": ("expert", "embed", "ff"),
+                    "w_down": ("expert", "ff", "embed")}
+        if cfg.moe.num_shared:
+            p["ffn"]["shared"] = _mlp_axes()
+    elif ffn != "none":
+        p["norm2"] = _norm_axes(cfg.norm)
+        p["ffn"] = _mlp_axes(cfg.mlp_gated)
+    return p
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_model`'s tree, a
+    tuple per leaf in the same dict layout: the axes the JAX package's
+    ``Param`` s carry (``"embed"``, ``"vocab"``, ``"heads"``, ``"ff"``,
+    ``"heads_ff"``, ``"expert"``, or ``None``), which
+    :mod:`repro_torch.runtime.sharding` resolves against a mesh. The JAX
+    package's scanned groups carry a leading ``"layers"`` axis, never
+    sharded; the port's unstacked layers have none. The AdamW moments
+    follow the same tree."""
+    p = {}
+    if cfg.inputs == "tokens":
+        p["embed"] = ("vocab", "embed")
+    elif cfg.inputs == "codes":
+        p["embed"] = (None, "vocab", "embed")
+    p["layers"] = [_block_axes(cfg, spec) for spec in cfg.block_specs]
+    p["final_norm"] = _norm_axes(cfg.norm)
+    if cfg.inputs == "codes":
+        p["heads"] = (None, "embed", "vocab")
+    elif not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
+    return p
+
+
+def weight_axes(cfg: ArchConfig, head: bool = True) -> dict:
+    """:func:`param_axes` laid out as :func:`compute_weights`' tree:
+    ``"head"`` the output projection (``embed.T``, ``unembed`` or the
+    codes heads), no ``"unembed"``/``"heads"``."""
+    ax = param_axes(cfg)
+    out = {"layers": ax["layers"], "final_norm": ax["final_norm"]}
+    if "embed" in ax:
+        out["embed"] = ax["embed"]
+    if head:
+        out["head"] = (ax["heads"] if cfg.inputs == "codes"
+                       else ax["embed"][::-1] if cfg.tie_embeddings
+                       else ax["unembed"])
+    return out
 
 
 def compute_weights(params: dict, cfg: ArchConfig, head: bool = True
@@ -133,6 +243,8 @@ def embed_inputs(embed: torch.Tensor | None, cfg: ArchConfig,
         if cfg.pos == "sinusoidal":
             x = x + L.sinusoidal_positions(positions,
                                            cfg.d_model).to(x.dtype)
+    elif spmd.is_dist(embed):
+        x = spmd.embedding(embed, inputs)
     else:
         x = embed[inputs]
     return x * L.weak(cfg.emb_mult, x.dtype), positions
@@ -155,20 +267,29 @@ def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
     return out
 
 
+def _id(a):
+    return a
+
+
 def apply_model(weights: dict, cfg: ArchConfig, inputs, positions=None, *,
                 states=None, prefill=False, cache_len=0, pages=None,
-                backend=None):
+                backend=None, constrain=_id):
     """Forward to the final hidden states: ``(h [B, S, D], states,
     aux)``, ``aux`` the MoE layers' load-balancing losses summed (a
     float32 zero for a dense model), as the JAX package's
     ``apply_model`` returns them. ``inputs`` is the model input (see the
-    module doc). Serving and tracing ignore ``aux``."""
+    module doc). Serving and tracing ignore ``aux``. ``constrain`` (a
+    passthrough by default; :func:`repro_torch.runtime.sharding.
+    make_constrain` on a mesh) pins the residual stream where the JAX
+    package pins it."""
     with interpret.scope("embed"):
         x, positions = embed_inputs(weights.get("embed"), cfg, inputs,
                                     positions, compute_dtype(cfg))
+    x = constrain(x)
     x, states, aux = T.apply_stack(
         weights["layers"], x, cfg, positions=positions, states=states,
-        prefill=prefill, cache_len=cache_len, pages=pages, backend=backend)
+        prefill=prefill, cache_len=cache_len, pages=pages, backend=backend,
+        constrain=constrain)
     return L.apply_norm(cfg.norm, weights["final_norm"], x), states, aux
 
 
@@ -225,18 +346,20 @@ def make_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     return [block_state(spec) for spec in cfg.block_specs]
 
 
-def make_prefill_step(cfg: ArchConfig, cache_len: int):
+def make_prefill_step(cfg: ArchConfig, cache_len: int, constrain=_id):
     """``(weights, inputs, positions=None) -> (logits at the last
     position, states)``: a prefill at the input's own length."""
     def prefill_step(weights, inputs, positions=None):
         h, states, _ = apply_model(weights, cfg, inputs, positions,
-                                   prefill=True, cache_len=cache_len)
+                                   prefill=True, cache_len=cache_len,
+                                   constrain=constrain)
         return logits_fn(weights, cfg, h[:, -1]), states
 
     return prefill_step
 
 
-def make_slot_prefill_step(cfg: ArchConfig, cache_len: int):
+def make_slot_prefill_step(cfg: ArchConfig, cache_len: int,
+                           constrain=_id):
     """``(weights, inputs [1, S...], length) -> (logits at position
     length-1, states)`` for a prompt right-padded to a bucket length ``S
     >= length``. Right padding is exact by causality for attention and
@@ -247,13 +370,13 @@ def make_slot_prefill_step(cfg: ArchConfig, cache_len: int):
     the prompt's exact length."""
     def slot_prefill_step(weights, inputs, length: int):
         h, states, _ = apply_model(weights, cfg, inputs, prefill=True,
-                                   cache_len=cache_len)
+                                   cache_len=cache_len, constrain=constrain)
         return logits_fn(weights, cfg, h[:, max(length - 1, 0)]), states
 
     return slot_prefill_step
 
 
-def make_chunk_prefill_step(cfg: ArchConfig):
+def make_chunk_prefill_step(cfg: ArchConfig, constrain=_id):
     """``(weights, pools, tokens [1, C], positions [1, C], pages [1, MP],
     length, start) -> logits [1, V]``: one chunk of a paged prefill at
     the absolute positions ``start..`` (given on the host too, so no step
@@ -267,7 +390,7 @@ def make_chunk_prefill_step(cfg: ArchConfig):
     def chunk_prefill_step(weights, states, tokens, positions, pages,
                            length: int, start: int):
         h, _, _ = apply_model(weights, cfg, tokens, positions,
-                              states=states, pages=pages)
+                              states=states, pages=pages, constrain=constrain)
         idx = min(max(length - 1 - start, 0), h.shape[1] - 1)
         return logits_fn(weights, cfg, h[:, idx])
 
@@ -284,7 +407,8 @@ def make_embed_step(cfg: ArchConfig):
     return embed_step
 
 
-def make_decode_step(cfg: ArchConfig, backend: str | None = "auto"):
+def make_decode_step(cfg: ArchConfig, backend: str | None = "auto",
+                     constrain=_id):
     """``(weights, states, inputs [B, 1...], positions, pages=None) ->
     logits [B, V]`` (``[B, K, V]`` for codes), the states updated in
     place. The projections, MLPs and token head the JAX package runs
@@ -295,7 +419,8 @@ def make_decode_step(cfg: ArchConfig, backend: str | None = "auto"):
 
     def decode_step(weights, states, inputs, positions, pages=None):
         h, _, _ = apply_model(weights, cfg, inputs, positions,
-                              states=states, pages=pages, backend=backend)
+                              states=states, pages=pages, backend=backend,
+                              constrain=constrain)
         return logits_fn(weights, cfg, h[:, -1], backend)
 
     return decode_step
@@ -355,9 +480,9 @@ def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
     nb = -(-s // c)
     pad = nb * c - s
     if pad:
-        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
-        targets = torch.nn.functional.pad(targets, (0, pad))
+        h = spmd.pad(h, (0, 0, 0, pad))
+        mask = spmd.pad(mask, (0, pad))
+        targets = spmd.pad(targets, (0, pad))
     tot = torch.zeros((), device=h.device)
     cnt = torch.zeros((), device=h.device)
     for i in range(nb):
@@ -369,7 +494,10 @@ def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
         lse = torch.logsumexp(lg, dim=-1)
         if cfg.inputs == "codes":
             tc = tc.movedim(1, -1)                 # [B, c, K]
-        lab = lg.gather(-1, tc[..., None].long())[..., 0]
+        # on a mesh the gather reads the whole vocab: DTensor's masked
+        # vocab-shard gather does not reduce this shape
+        lab = spmd.unshard_dims(lg, (lg.ndim - 1,)).gather(
+            -1, tc[..., None].long())[..., 0]
         ce = lse - lab
         if cfg.inputs == "codes":
             ce = ce.sum(-1) / torch.tensor(float(cfg.codebooks),
@@ -379,7 +507,8 @@ def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def loss_fn(params: dict, cfg: ArchConfig, batch: dict, chunk: int = 512):
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, chunk: int = 512,
+            constrain=_id):
     """Next-token loss of the float32 masters ``params`` on a JAX-style
     batch (:func:`model_input`; targets from ``tokens``, ``labels`` for
     embeds, or ``codes``, shifted by one; an optional ``mask [B, S]``,
@@ -388,12 +517,15 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, chunk: int = 512):
     graph back to ``params``."""
     inputs, positions = model_input(cfg, batch)
     h, _, aux = apply_model(compute_weights(params, cfg, head=False), cfg,
-                            inputs, positions)
+                            inputs, positions, constrain=constrain)
     tokens = batch["labels" if cfg.inputs == "embeds" else cfg.inputs]
     rows = tokens[:, 0] if cfg.inputs == "codes" else tokens
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(rows.shape, device=h.device)
+    # on a mesh the head reads whole sequences: gather a sequence-parallel
+    # stream once here, before the shift and the chunks slice it
+    h = spmd.unshard_dims(h, tuple(range(1, h.ndim)))
     ce = _chunked_ce(params, cfg, h[:, :-1], tokens[..., 1:],
                      mask[:, 1:].float(), chunk)
     loss = ce + 0.01 * aux
@@ -411,7 +543,7 @@ def _split(a: torch.Tensor, n: int, i: int) -> torch.Tensor:
 
 
 def make_train_step(cfg: ArchConfig, optimizer, grad_accum: int = 1,
-                    monitor: bool = False, chunk: int = 512):
+                    monitor: bool = False, chunk: int = 512, constrain=_id):
     """``(params, opt_state, batch, step) -> (params, opt_state,
     metrics)``: gradients of :func:`loss_fn` against the float32 masters
     by ``torch.autograd`` (summed over ``grad_accum`` micro-batches in
@@ -424,7 +556,7 @@ def make_train_step(cfg: ArchConfig, optimizer, grad_accum: int = 1,
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics = loss_fn(tree_unflatten(params, leaves), cfg,
-                                    batch, chunk)
+                                    batch, chunk, constrain)
             grads = torch.autograd.grad(loss, leaves)
         return (tree_unflatten(params, grads),
                 {k: v.detach() for k, v in metrics.items()})
@@ -473,10 +605,12 @@ def _monitor_metrics(params: dict, cfg: ArchConfig, batch: dict,
         embed = params.get("embed")
         x, _ = embed_inputs(None if embed is None else embed.to(
             torch.bfloat16), cfg, inputs, positions, torch.bfloat16)
-        x2 = x.reshape(-1, x.shape[-1])[:256]
-        w = pick_monitor_weights(params, cfg)[0][1]
+        # on a mesh the streamed operands are gathered (the counters see
+        # the single-device operands, bit for bit)
+        x2 = spmd.local(x.reshape(-1, x.shape[-1])[:256])
+        w = spmd.local(pick_monitor_weights(params, cfg)[0][1][:, :256])
         mcfg = pm_monitor.MonitorConfig(geometry=systolic.MXU_SA,
                                         backend=backend)
-        m = pm_monitor.monitor_matmul(x2, w[:, :256], mcfg)
+        m = pm_monitor.monitor_matmul(x2, w, mcfg)
     return {f"power/{k}": v for k, v in m.items()
             if k not in pm_monitor.SIZE_KEYS}

@@ -22,7 +22,9 @@ import torch
 
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.kernels.zvg_matmul import gated_row_matmul
+from repro_torch.runtime import spmd
 from repro_torch.trace import interpret
+
 
 
 def check_backend(backend: str | None) -> None:
@@ -43,6 +45,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, backend: str | None):
+    if spmd.is_dist(x) or spmd.is_dist(w):
+        return spmd.matmul(lambda a, b: _plain(a, b, backend), x, w)
+    return _plain(x, w, backend)
+
+
+def _plain(x: torch.Tensor, w: torch.Tensor, backend: str | None):
     if backend is None or w.dim() != 2:
         return x @ w
     out = gated_row_matmul(x.reshape(-1, x.shape[-1]), w, backend)

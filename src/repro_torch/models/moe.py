@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.trace import interpret
 
+from . import attention as A
 from . import layers as L
 from . import matmul as mm
 
@@ -97,15 +98,24 @@ def _topk_dispatch(logits: torch.Tensor, k: int, capacity: int):
     return dispatch, combine, aux
 
 
+def _ep_constrain(t: torch.Tensor, expert_dim: int) -> torch.Tensor:
+    """Pin expert-parallel buffers ``[g, e, c, d]`` to (groups over the
+    data axes, experts over the model axis) on a mesh, as the JAX
+    package's ``_ep_constrain`` does; a plain tensor passes as it is."""
+    spec = [None] * t.ndim
+    spec[0] = "dp"
+    spec[expert_dim] = "model"
+    return A._try_constrain(t, tuple(spec))
+
+
 def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
               backend: str | None = None):
     """MoE layer: ``x [B, S, D] -> (y [B, S, D], aux)``. ``p`` holds the
     router as its float32 master and the experts (and a shared MLP) in
     ``x``'s dtype; ``backend`` reaches the shared MLP's matmuls only (the
-    JAX package's einsums never take the gated kernel). The JAX package's
-    ``_ep_constrain`` pins the expert buffers to an expert-parallel
-    sharding; on one card it has nothing to do and has no counterpart
-    here."""
+    JAX package's einsums never take the gated kernel). On a mesh the
+    expert buffers are pinned to the expert-parallel layout
+    (:func:`_ep_constrain`)."""
     b, s, d = x.shape
     gs = min(cfg.group_size, s)
     if s % gs:
@@ -119,11 +129,13 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig, act: str = "silu",
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
 
-    xin = interpret.einsum("gsec,gsd->gecd", dispatch, xg)
+    xin = _ep_constrain(interpret.einsum("gsec,gsd->gecd", dispatch, xg),
+                        1)
     actf = L._ACTS[act]
     h = (actf(interpret.einsum("gecd,edf->gecf", xin, p["w_gate"]))
          * interpret.einsum("gecd,edf->gecf", xin, p["w_up"]))
-    y = interpret.einsum("gecf,efd->gecd", h, p["w_down"])
+    y = _ep_constrain(interpret.einsum("gecf,efd->gecd", h, p["w_down"]),
+                      1)
     out = interpret.einsum("gsec,gecd->gsd", combine, y).reshape(b, s, d)
     if "shared" in p:
         out = out + L.apply_mlp(p["shared"], x, act, backend)

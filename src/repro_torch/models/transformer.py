@@ -52,11 +52,13 @@ nothing.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
 from repro_torch.kernels.zvg_matmul import fused_paged_attention
 from repro_torch.kernels.zvg_matmul.ref import gather_pages
+from repro_torch.runtime import spmd as S
 from repro_torch.trace import interpret
 
 from . import attention as A
@@ -160,7 +162,7 @@ def _write_state(state, new):
         for s, n in zip(state, new):
             _write_state(s, n)
     else:
-        state.copy_(new)
+        S.copy_into(state, new)
     return state
 
 
@@ -199,11 +201,11 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             y = mm.matmul(x, p[w], backend)
             if bname in p:
                 y = y + p[bname]
-        return y.reshape(b, s, nh, hd)
+        return S.reshape(y, b, s, nh, hd)
 
     def wo(out):
         with interpret.scope("wo"):
-            return mm.matmul(out.reshape(b, s, h * hd), p["wo"], backend)
+            return mm.matmul(S.reshape(out, b, s, h * hd), p["wo"], backend)
 
     q = proj("wq", "bq", h)
     k = proj("wk", "bk", kv)
@@ -213,18 +215,23 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     if state is not None and pages is not None:   # ---- paged decode/chunk
         kp, vp = state                            # [P, ps, kv, hd] pools
         pg, off = _page_targets(pages, positions, kp.shape[1])
-        kp[pg, off] = k.to(kp.dtype)
-        vp[pg, off] = v.to(vp.dtype)
+        S.index_write(kp, (pg, off), k)
+        S.index_write(vp, (pg, off), v)
+        # on a mesh the gather reads pages of every data shard
+        kr_, vr_ = S.unshard_dims(kp, (0,)), S.unshard_dims(vp, (0,))
         if s == 1:
             # a chunk of one token runs the plain version, as prefill does
             out = fused_paged_attention(
-                q.contiguous(), kp, vp, pages, positions[:, 0] + 1,
-                A.decode_attention, scale=scale, softcap=cfg.attn_softcap,
+                q.contiguous(), kr_, vr_, pages, positions[:, 0] + 1,
+                functools.partial(A.decode_attention,
+                                  constrain_q=cfg.pos != "mrope"),
+                scale=scale, softcap=cfg.attn_softcap,
                 backend=backend or "ref")
         else:
             out = A.paged_chunk_attention(
-                q, gather_pages(kp, pages), gather_pages(vp, pages),
-                positions, scale=scale, softcap=cfg.attn_softcap)
+                q, gather_pages(kr_, pages), gather_pages(vr_, pages),
+                positions, scale=scale, softcap=cfg.attn_softcap,
+                constrain_q=cfg.pos != "mrope")
         return wo(out), (kp, vp)
 
     if state is not None:                       # ---- single-token decode
@@ -233,16 +240,17 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if local:
             kc, vc, slots = state
             slot = bpos % kc.shape[1]
-            kc[rows, slot] = k[:, 0].to(kc.dtype)
-            vc[rows, slot] = v[:, 0].to(vc.dtype)
-            slots[rows, slot] = bpos.to(slots.dtype)
+            S.index_write(kc, (rows, slot), k[:, 0])
+            S.index_write(vc, (rows, slot), v[:, 0])
+            S.index_write(slots, (rows, slot), bpos)
             out = _ring_decode(q, kc, vc, slots, bpos, cfg, scale)
         else:
             kc, vc = state
-            kc[rows, bpos] = k[:, 0].to(kc.dtype)
-            vc[rows, bpos] = v[:, 0].to(vc.dtype)
+            S.index_write(kc, (rows, bpos), k[:, 0])
+            S.index_write(vc, (rows, bpos), v[:, 0])
             out = A.decode_attention(q, kc, vc, bpos + 1, scale=scale,
-                                     softcap=cfg.attn_softcap)
+                                     softcap=cfg.attn_softcap,
+                                     constrain_q=cfg.pos != "mrope")
         return wo(out), state
 
     if local:
@@ -329,10 +337,10 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         if pages is not None:                   # paged: pool-backed cache
             ckv_p, kr_p = state                 # [P, ps, r], [P, ps, dr]
             pg, off = _page_targets(pages, positions, ckv_p.shape[1])
-            ckv_p[pg, off] = ckv.to(ckv_p.dtype)
-            kr_p[pg, off] = kr[:, :, 0].to(kr_p.dtype)
-            ckv_c = gather_pages(ckv_p, pages)
-            kr_c = gather_pages(kr_p, pages)
+            S.index_write(ckv_p, (pg, off), ckv)
+            S.index_write(kr_p, (pg, off), kr[:, :, 0])
+            ckv_c = gather_pages(S.unshard_dims(ckv_p, (0,)), pages)
+            kr_c = gather_pages(S.unshard_dims(kr_p, (0,)), pages)
             kpos = torch.arange(ckv_c.shape[1], device=x.device)
             # per-query causal mask [B, 1, S, T]; for S == 1 it is the
             # dense decode mask below
@@ -342,11 +350,13 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
             ckv_c, kr_c = state
             bpos = _decode_batch_pos(cfg, positions)
             rows = torch.arange(b, device=x.device)
-            ckv_c[rows, bpos] = ckv[:, 0].to(ckv_c.dtype)
-            kr_c[rows, bpos] = kr[:, 0, 0].to(kr_c.dtype)
+            S.index_write(ckv_c, (rows, bpos), ckv[:, 0])
+            S.index_write(kr_c, (rows, bpos), kr[:, 0, 0])
             kpos = torch.arange(ckv_c.shape[1], device=x.device)
             mask = (kpos[None, :] <= bpos[:, None])[:, None, None, :]
         q_eff = ein("bshe,rhe->bshr", q_nope, p["w_uk"])
+        # keep the absorbed query latent-sharded like the cache on a mesh
+        q_eff = A._try_constrain(q_eff, (None, None, None, "model"))
         scores = (ein("bshr,btr->bhst", q_eff, ckv_c)
                   + ein("bshe,bte->bhst", q_rope, kr_c)).float()
         scores = scores * ((dn + dr) ** -0.5)
@@ -412,12 +422,17 @@ def apply_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, mixer: str, *,
 
 
 # -------------------------------------------------------------------- block
+def _id(a):
+    return a
+
+
 def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
                 positions: torch.Tensor, state=None, prefill: bool = False,
                 cache_len: int = 0, pages: torch.Tensor | None = None,
-                backend: str | None = None):
+                backend: str | None = None, constrain=_id):
     """One block: ``(x, state, aux)``, ``aux`` the MoE's load-balancing
-    loss (a float32 zero for a dense block)."""
+    loss (a float32 zero for a dense block). ``constrain`` pins each
+    residual add to the sequence-parallel layout on a mesh."""
     mixer, ffn = parse_spec(spec)
     aux = torch.zeros((), device=x.device)
     h = L.apply_norm(cfg.norm, p["norm1"], x)
@@ -426,7 +441,7 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
             p["mixer"], h, cfg, mixer, positions=positions, state=state,
             prefill=prefill, cache_len=cache_len, pages=pages,
             backend=backend)
-    x = x + L.weak(cfg.resid_mult, out.dtype) * out
+    x = constrain(x + L.weak(cfg.resid_mult, out.dtype) * out)
     if ffn == "none":
         return x, new_state, aux
     h = L.apply_norm(cfg.norm, p["norm2"], x)
@@ -435,7 +450,7 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
             y, aux = M.apply_moe(p["ffn"], h, cfg.moe, cfg.act, backend)
         else:
             y = L.apply_mlp(p["ffn"], h, cfg.act, backend)
-    x = x + L.weak(cfg.resid_mult, y.dtype) * y
+    x = constrain(x + L.weak(cfg.resid_mult, y.dtype) * y)
     return x, new_state, aux
 
 
@@ -444,24 +459,34 @@ def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
                 positions: torch.Tensor, states: list | None = None,
                 prefill: bool = False, cache_len: int = 0,
                 pages: torch.Tensor | None = None,
-                backend: str | None = None):
+                backend: str | None = None, constrain=_id):
     """Run every layer. Returns ``(x, states, aux)``: the per-layer states
     for decode and paged steps (updated in place) and prefill, else
     ``None``; and the blocks' load-balancing losses summed in layer
-    order, as the JAX package's stack sums them."""
+    order, as the JAX package's stack sums them. ``constrain`` is applied
+    where the JAX stack applies it: each residual add of the unrolled
+    head and tail blocks, and the stream after the head, after each
+    pattern group and after the tail."""
     new_states = [] if (states is not None or prefill) else None
     aux_total = torch.zeros((), device=x.device)
+    n_head, n_pat = len(cfg.head), len(cfg.pattern)
+    n_body = cfg.n_groups * n_pat
+    if not n_head:
+        x = constrain(x)            # the JAX stack's constraint after head
     for i, (p, spec) in enumerate(zip(layers, cfg.block_specs)):
+        body = n_head <= i < n_head + n_body
         with _layer_scope(cfg, i):
             x, st, aux = apply_block(
                 p, x, cfg, spec, positions=positions,
                 state=None if states is None else states[i],
                 prefill=prefill, cache_len=cache_len, pages=pages,
-                backend=backend)
+                backend=backend, constrain=_id if body else constrain)
+        if i == n_head - 1 or (body and (i - n_head) % n_pat == n_pat - 1):
+            x = constrain(x)
         aux_total = aux_total + aux
         if new_states is not None:
             new_states.append(st)
-    return x, new_states, aux_total
+    return constrain(x), new_states, aux_total
 
 
 def _layer_scope(cfg: ArchConfig, i: int):

@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
+from repro_torch.runtime import sharding as rsh
+from repro_torch.runtime import spmd
 
 
 class SlotCache:
@@ -25,7 +27,7 @@ class SlotCache:
     host-side numpy arrays."""
 
     def __init__(self, cfg: ArchConfig, max_slots: int, cache_len: int,
-                 dtype: torch.dtype, device):
+                 dtype: torch.dtype, device, mesh=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1: {max_slots}")
         self.cfg = cfg
@@ -34,6 +36,11 @@ class SlotCache:
         self.device = torch.device(device)
         self.states = lm.make_decode_state(cfg, max_slots, cache_len, dtype,
                                            self.device)
+        self.mesh = mesh
+        self.shardings = None
+        if mesh is not None:
+            self.shardings = rsh.cache_shardings(mesh, self.states)
+            self.states = rsh.device_put(self.states, self.shardings)
         self._free: list[int] = list(range(max_slots - 1, -1, -1))
         self.live = np.zeros(max_slots, bool)
         self.positions = np.zeros(max_slots, np.int64)
@@ -95,16 +102,29 @@ class SlotCache:
     def decode_inputs(self) -> tuple[torch.Tensor, ...]:
         """``(tokens [B, 1], positions [B, 1])`` for one shared decode
         step; dead rows feed token 0 at position 0."""
-        return (torch.from_numpy(self.tokens[:, None]).to(self.device),
-                torch.from_numpy(self.positions[:, None]).to(self.device))
+        return _batch_inputs(self.mesh, (
+            torch.from_numpy(self.tokens[:, None]).to(self.device),
+            torch.from_numpy(self.positions[:, None]).to(self.device)))
+
+
+def _batch_inputs(mesh, inputs: tuple) -> tuple:
+    """Decode inputs as they are, or distributed by ``batch_shardings``
+    on a mesh (the batch dim over the data axes)."""
+    if mesh is None:
+        return inputs
+    return rsh.device_put(inputs, rsh.batch_shardings(mesh, inputs))
 
 
 def _install(state, state1, slot: int) -> None:
     """Copy a batch-1 decode state (a tensor or a nested tuple of them:
     KV caches, a ring with its slots, a latent cache, recurrent states)
-    into row ``slot`` of the slot cache's state."""
+    into row ``slot`` of the slot cache's state, in place (on a mesh,
+    into the rank that holds the row)."""
     if isinstance(state, tuple):
         for s, s1 in zip(state, state1):
             _install(s, s1, slot)
+    elif spmd.is_dist(state):
+        spmd.index_write(state, (torch.tensor([slot], device=state.device),),
+                         state1)
     else:
         state[slot].copy_(state1[0])

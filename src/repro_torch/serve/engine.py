@@ -40,6 +40,19 @@ Hopper kernels for CUDA tensors, their plain versions on the CPU),
 ``"cuda"``, or ``"ref"`` (the plain versions on any device). The engine
 runs on ``ServeConfig.device``, the card by default.
 
+On a mesh (``ServeEngine(..., mesh=DeviceMesh)``,
+:func:`repro_torch.launch.mesh.make_host_mesh`; every rank of the mesh
+runs the same engine on the same requests) the weights are distributed
+by the TP-only serve rules, the slot cache by ``cache_shardings`` and the
+decode inputs by ``batch_shardings`` (:mod:`repro_torch.runtime.
+sharding`); prefill runs batch 1 on the distributed weights and the
+admission writes its states into the distributed cache in place. The
+decode step computes ``"ref"`` (``decode_compute_backend``), as the JAX
+package's mesh decode does; the accountant keeps ``kernel_backend``: it
+streams operands gathered to plain tensors (the monitored weights once at
+init), so K1 and K3 run on the card and its counters are bitwise the
+single-device engine's.
+
 With ``ServeConfig.paging`` set, ``ServeEngine(...)`` returns a
 :class:`repro_torch.serve.paging.engine.PagedServeEngine`, which keeps
 this step loop and overrides the hooks ``_build_state``,
@@ -55,12 +68,14 @@ import torch
 from repro_torch.core import monitor as pm_monitor
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.models import lm
+from repro_torch.runtime import spmd
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import parse_spec
+from repro_torch.runtime import sharding as rsh
 
 from . import sampling
 from .cache import SlotCache
-from .power import PowerAccountant
+from .power import PowerAccountant, gather_local
 from .request import Request, RequestStatus
 from .scheduler import FIFOScheduler
 
@@ -137,10 +152,6 @@ class ServeEngine:
 
     def __init__(self, params: dict, cfg: ArchConfig, scfg: ServeConfig,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh not ported yet: the port serves on one device "
-                "(ROADMAP queue 1 step 7)")
         if cfg.inputs != "tokens":
             raise ValueError(f"ServeEngine serves token LMs; {cfg.name} "
                              f"has inputs={cfg.inputs!r}")
@@ -150,17 +161,26 @@ class ServeEngine:
         self.scfg = scfg
         self.device = torch.device(scfg.device)
         self.dtype = lm.compute_dtype(cfg)
+        self.mesh = mesh
         self.params = _to(params, self.device)
-        self.weights = lm.compute_weights(self.params, cfg)
-        # the accountant streams bfloat16 embeddings whatever the compute
-        # dtype (the JAX package's embed step)
-        self._embed_bf16 = (self.weights["embed"]
-                            if self.dtype == torch.bfloat16
-                            else self.params["embed"].to(torch.bfloat16))
+        self.param_shardings = None
+        if mesh is not None:
+            self.param_shardings = rsh.param_shardings(
+                mesh, self.params, lm.param_axes(cfg), serve=True)
+            self.params = rsh.device_put(self.params, self.param_shardings)
+        with spmd.on_mesh(mesh):
+            self.weights = lm.compute_weights(self.params, cfg)
+            # the accountant streams bfloat16 embeddings whatever the
+            # compute dtype (the JAX package's embed step)
+            self._embed_bf16 = (self.weights["embed"]
+                                if self.dtype == torch.bfloat16
+                                else self.params["embed"].to(torch.bfloat16))
         self._build_state()        # cache + scheduler (paged overrides)
-        self._prefill = lm.make_slot_prefill_step(cfg, scfg.cache_len)
-        self._decode = lm.make_decode_step(cfg, scfg.kernel_backend)
-        self._embed = lm.make_embed_step(cfg)
+        self._prefill = self._mesh_step(
+            lm.make_slot_prefill_step(cfg, scfg.cache_len))
+        self._decode = self._mesh_step(lm.make_decode_step(
+            cfg, rsh.decode_compute_backend(mesh, scfg.kernel_backend)))
+        self._embed = self._mesh_step(lm.make_embed_step(cfg))
         self._running: dict[int, Request] = {}
         self._temp = np.zeros(self._batch, np.float32)
         self._topk = np.zeros(self._batch, np.int64)
@@ -176,16 +196,36 @@ class ServeEngine:
             self.accountant.retire_hooks.append(self.telemetry.on_retire)
             if scfg.telemetry.actuate:
                 self.accountant.enable_actuation()
-        self._power_weights = (lm.pick_monitor_weights(self.params, cfg)
-                               if scfg.power_monitor else [])
+        # on a mesh the monitored weights are gathered once, here: counter
+        # streaming then runs on operands bitwise the unsharded engine's
+        self._power_weights = (
+            [(site, gather_local(w)) for site, w in
+             lm.pick_monitor_weights(self.params, cfg)]
+            if scfg.power_monitor else [])
         self.stats = {"steps": 0, "decode_steps": 0, "tokens": 0,
                       "occupancy_sum": 0, "peak_live": 0}
+
+    def _mesh_step(self, fn):
+        """``fn`` run in ``spmd.on_mesh``, its tensor outputs gathered to
+        plain tensors on the engine's device but the states (updated in
+        place, or a prefill's, which the admission scatters)."""
+        if self.mesh is None:
+            return fn
+
+        def run(*args):
+            with spmd.on_mesh(self.mesh):
+                out = fn(*args)
+            if isinstance(out, tuple):          # (logits, states)
+                return (gather_local(out[0]),) + out[1:]
+            return gather_local(out)
+        return run
 
     def _build_state(self) -> None:
         """Cache, scheduler and decode batch width (subclass hook)."""
         self._batch = self.scfg.max_slots
         self.cache = SlotCache(self.cfg, self.scfg.max_slots,
-                               self.scfg.cache_len, self.dtype, self.device)
+                               self.scfg.cache_len, self.dtype, self.device,
+                               mesh=self.mesh)
         self.scheduler = FIFOScheduler(self.scfg.cache_len)
 
     # -------------------------------------------------------------- submit

@@ -28,6 +28,9 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
+from repro_torch.runtime import sharding as rsh
+from repro_torch.runtime import spmd
+from repro_torch.serve.cache import _batch_inputs
 
 TRASH = 0          # reserved pool page: write redirect target, never owned
 
@@ -42,7 +45,8 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg: ArchConfig, max_rows: int, cache_len: int,
-                 page_size: int, num_pages: int, dtype: torch.dtype, device):
+                 page_size: int, num_pages: int, dtype: torch.dtype, device,
+                 mesh=None):
         if max_rows < 1:
             raise ValueError(f"max_rows must be >= 1: {max_rows}")
         if cache_len % page_size:
@@ -57,6 +61,14 @@ class PagedKVCache:
         self.device = torch.device(device)
         self.states = lm.make_decode_state(cfg, num_pages, page_size, dtype,
                                            self.device)
+        # on a mesh the pool is distributed by paged_cache_shardings: pages
+        # over the data axes (the trash page stays inside the pool, which
+        # keeps the page axis divisible), one feature dim over "model"
+        self.mesh = mesh
+        self.shardings = None
+        if mesh is not None:
+            self.shardings = rsh.paged_cache_shardings(mesh, self.states)
+            self.states = rsh.device_put(self.states, self.shardings)
         self._free_rows: list[int] = list(range(max_rows - 1, -1, -1))
         self._free_pages: list[int] = list(range(num_pages - 1, 0, -1))
         self.live = np.zeros(max_rows, bool)        # decoding
@@ -166,8 +178,8 @@ class PagedKVCache:
             self.device).long()
         for pools, dense in zip(self.states, states1):
             for pool, d1 in zip(pools, dense):
-                pool[idx] = d1[0, :n].reshape((n_pages_used, ps)
-                                              + pool.shape[2:])
+                spmd.index_write(pool, (idx,), d1[0, :n].reshape(
+                    (n_pages_used, ps) + tuple(pool.shape[2:])))
 
     def activate(self, row: int, first_token: int, prompt_len: int) -> None:
         """Prefill complete: the row joins the shared decode batch at
@@ -196,6 +208,7 @@ class PagedKVCache:
         step. (The JAX package hands such a row its own table, and the
         step writes junk at position 0 of its first page.)"""
         tables = np.where(self.live[:, None], self.tables, TRASH)
-        return (torch.from_numpy(self.tokens[:, None]).to(self.device),
-                torch.from_numpy(self.positions[:, None]).to(self.device),
-                torch.from_numpy(tables.astype(np.int32)).to(self.device))
+        return _batch_inputs(self.mesh, (
+            torch.from_numpy(self.tokens[:, None]).to(self.device),
+            torch.from_numpy(self.positions[:, None]).to(self.device),
+            torch.from_numpy(tables.astype(np.int32)).to(self.device)))

@@ -76,7 +76,7 @@ class PagedServeEngine(ServeEngine):
 
     def __init__(self, params, cfg, scfg, mesh=None):
         super().__init__(params, cfg, scfg, mesh)
-        self._chunk = lm.make_chunk_prefill_step(cfg)
+        self._chunk = self._mesh_step(lm.make_chunk_prefill_step(cfg))
         pcfg = scfg.paging
         self.prefix = (PrefixCache(pcfg.page_size)
                        if pcfg.prefix_cache else None)
@@ -98,7 +98,8 @@ class PagedServeEngine(ServeEngine):
         self._batch = pcfg.max_rows
         self.cache = PagedKVCache(self.cfg, pcfg.max_rows,
                                   self.scfg.cache_len, pcfg.page_size,
-                                  pcfg.num_pages, self.dtype, self.device)
+                                  pcfg.num_pages, self.dtype, self.device,
+                                  mesh=self.mesh)
         self.scheduler = ClassScheduler(
             self.scfg.cache_len, pcfg.classes, page_size=pcfg.page_size,
             usable_pages=pcfg.num_pages - 1)

@@ -46,6 +46,7 @@ from repro_torch.kernels import power_counters as pc
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.kernels.zvg_matmul import fused_matmul_counters
 from repro_torch.kernels.zvg_matmul.ref import pad_lanes as _pad_lanes
+from repro_torch.runtime.spmd import local
 from repro_torch.trace.capture import CaptureConfig, TraceCapture
 
 #: the pseudo-design that prices each recording under the design that
@@ -115,10 +116,11 @@ def actuated_stream_energy(records, primary: str) -> float:
 
 
 def gather_local(a):
-    """The operand on the accountant's device. The JAX package gathers a
-    mesh-sharded operand here; the port serves on one device, so this is
-    the identity, kept so the accountant reads as the JAX one does."""
-    return a
+    """The operand as a plain tensor on the accountant's device: a
+    DTensor of a mesh engine is gathered to its full value (the JAX
+    package's ``device_get``), so the counters see operands bitwise the
+    single-device engine's; a plain tensor passes as it is."""
+    return local(a)
 
 
 def fused_decode_supported(mcfg: monitor.MonitorConfig) -> bool:

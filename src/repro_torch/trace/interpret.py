@@ -37,6 +37,8 @@ from typing import Callable
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.runtime import spmd
+
 
 @dataclasses.dataclass
 class MatmulSite:
@@ -296,8 +298,11 @@ def emit_conv(x: torch.Tensor, w: torch.Tensor, stride, padding, dilation,
 def einsum(spec: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``torch.einsum(spec, x, y)``; under a trace, a frame named by the
     spec (as ``jnp.einsum``'s named call) holding the site of the
-    ``dot_general`` the JAX package would bind."""
+    ``dot_general`` the JAX package would bind. On a mesh (DTensor
+    operands) the product is :func:`repro_torch.runtime.spmd.einsum`."""
     if _ACTIVE is None or _ACTIVE.quiet:
+        if spmd.is_dist(x) or spmd.is_dist(y):
+            return spmd.einsum(spec, x, y)
         return torch.einsum(spec, x, y)
     with _frame(spec):
         A, W = einsum_operands_3d(spec, x, y)

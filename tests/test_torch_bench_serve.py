@@ -58,13 +58,20 @@ def test_registry_is_complete_and_names_the_jax_suites():
         k: q for k, (_, q) in JSUITES.items()}
 
 
-def test_run_lists_and_runs_a_suite(capsys):
+def test_run_lists_and_runs_a_suite(capsys, tmp_path, monkeypatch):
     assert run.main(["--list"]) == 0
     assert capsys.readouterr().out.split() == list(run.SUITES)
+    # the roofline summary at the end reads the port's dry-run cache (an
+    # empty one here: the table's header alone)
+    from repro_torch.launch import roofline
+    monkeypatch.setattr(roofline, "RESULTS_DIR", str(tmp_path))
     assert run.main(["--only", "overhead_scaling", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "overhead_share_128x128," in out and "CONFIRMED" in out
-    assert "step 7" in out.splitlines()[-1]
+    tail = out.splitlines()[-4:]
+    assert tail[0] == "# ===== roofline (from dry-run cache) ====="
+    assert tail[1].startswith("# roofline against NVIDIA H100")
+    assert tail[2].startswith("| arch")
 
 
 @pytest.fixture(scope="module")
@@ -118,9 +125,18 @@ def test_serve_throughput_quick_on_the_cpu(capsys):
     assert "kernel_backend=auto on cpu" in out
 
 
-def test_serve_throughput_refuses_a_mesh():
-    with pytest.raises(SystemExit, match="step 7"):
-        st.main(quick=True, mesh_spec="1x1", device="cpu")
+def test_serve_throughput_refuses_a_mesh(capsys):
+    """Not refused any more: ``--mesh 1x1`` adds the sharded cell (a
+    one-process gloo group, torn down after it), whose greedy tokens
+    equal the single-device cells'."""
+    import torch.distributed as dist
+    st.main(quick=True, mesh_spec="1x1", device="cpu")
+    assert not dist.is_initialized()
+    out = capsys.readouterr().out
+    assert _rows(out)[-1] == "serve_b4_mesh1x1"
+    mesh_row = [l for l in out.splitlines()
+                if l.startswith("serve_b4_mesh1x1")][0]
+    assert "same tokens: True" in mesh_row
 
 
 def _check_schema(path: Path, schema: str) -> None:

@@ -251,9 +251,21 @@ def test_cpu_run_launches_no_kernel_and_config_is_checked(model):
     assert str(ours.value) == str(theirs.value)
     assert _engine(model, telemetry=TelemetryConfig(),
                    power_monitor=True).telemetry is not None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeEngine(model[3], model[2], ServeConfig(device="cpu"),
-                    mesh=object())
+    # a 1x1 mesh (a one-process gloo group of its own) serves the
+    # no-mesh engine's greedy tokens
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    prompts = _prompts(2, seed=12)
+    want = _drain(_engine(model, max_slots=2), prompts, max_new=3)
+    mesh = make_host_mesh(data=1, model=1, device="cpu")
+    try:
+        got = _drain(ServeEngine(model[3], model[2], ServeConfig(
+            max_slots=2, cache_len=CACHE_LEN, device="cpu"), mesh=mesh),
+            prompts, max_new=3)
+    finally:
+        dist.destroy_process_group()
+    assert ({u: r.generated for u, r in got.items()}
+            == {u: r.generated for u, r in want.items()})
     with pytest.raises(ValueError, match="CUDA tensors"):
         _drain(_engine(model, kernel_backend="cuda"), [[1, 2, 3]])
 

@@ -311,10 +311,25 @@ _TINY = dict(arch="qwen1.5-0.5b", smoke=True, seq=32, batch=2, seed=3,
 
 
 def test_trainer_refuses_a_mesh_and_model_parallelism():
-    with pytest.raises(NotImplementedError, match="queue 1 step 7"):
-        T.train(T.TrainConfig(**_TINY, steps=1, model_parallel=2))
-    with pytest.raises(NotImplementedError, match="queue 1 step 7"):
-        T.train(T.TrainConfig(**_TINY, steps=1), mesh=object())
+    """Neither is refused any more: as in the JAX package, a
+    ``model_parallel`` above the world size falls back to the world (one
+    process: a 1x1 mesh on a gloo group of its own), and a 1x1 mesh
+    trains to the no-mesh run's losses and gradient norms."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    want = T.train(T.TrainConfig(**_TINY, steps=2))["history"]
+    try:
+        got = T.train(T.TrainConfig(**_TINY, steps=2, model_parallel=2))
+        mesh = make_host_mesh(data=1, model=1, device="cpu")
+        assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == {
+            "data": 1, "model": 1}
+        got_mesh = T.train(T.TrainConfig(**_TINY, steps=2), mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    for run in (got["history"], got_mesh["history"]):
+        for a, b in zip(run, want):
+            for k in ("loss", "grad_norm"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-6)
 
 
 def test_trainer_refuses_the_card_without_one():

@@ -145,9 +145,9 @@ def test_trainer_matches_jax(qwen, monkeypatch):
     want = jtrain.train(jtrain.TrainConfig(**kw))
     jopt = jadamw.AdamW()
 
-    def init_state(cfg_, opt, device, seed):
-        assert seed == 0 and dataclasses.asdict(cfg_) == dataclasses.asdict(
-            cfg)
+    def init_state(cfg_, opt, device, seed, mesh=None):
+        assert seed == 0 and mesh is None
+        assert dataclasses.asdict(cfg_) == dataclasses.asdict(cfg)
         return (convert.params_from_jax(_values(jparams), cfg, device),
                 convert.opt_state_from_jax(_values(jopt.init(jparams)),
                                            cfg, device))
