@@ -20,6 +20,7 @@ import torch
 from repro_torch import design as D
 from repro_torch.apps import check_device
 from repro_torch.core import bic, power, systolic
+from repro_torch.runtime import spans
 
 from . import nets
 
@@ -74,6 +75,11 @@ def analyze_trace(trace: nets.LayerTrace,
     """Price one traced layer for ``designs`` (default: the paper pair
     built from ``geom``/``segs``/``em``) from a single stream pass, on
     the device the operands live on."""
+    with spans.span("cnn.site"):
+        return _analyze_trace(trace, geom, segs, em, designs, backend)
+
+
+def _analyze_trace(trace, geom, segs, em, designs, backend) -> LayerPower:
     designs = tuple(designs) or _design_list(geom, tuple(segs), em)
     A, W = matmul_operands(trace)
     if trace.kind == "dwconv":
@@ -126,26 +132,29 @@ def select_network(layers: list[LayerPower],
                    candidates: Sequence[str] | None = None) -> D.Selection:
     """Greedy per-layer design choice over an ``analyze_network`` result
     (multi-design run required); marks each layer's ``selected``."""
-    sel = D.select_sites({l.name: l.designs for l in layers},
-                         reference=layers[0].reference,
-                         primary=layers[0].primary,
-                         candidates=candidates)
-    for l in layers:
-        l.selected = sel.choices[l.name]
-    return sel
+    with spans.span("cnn.select"):
+        sel = D.select_sites({l.name: l.designs for l in layers},
+                             reference=layers[0].reference,
+                             primary=layers[0].primary,
+                             candidates=candidates)
+        for l in layers:
+            l.selected = sel.choices[l.name]
+        return sel
 
 
 def network_summary(layers: list[LayerPower]) -> dict:
     """Energy-weighted network aggregates (paper's 'overall' numbers)."""
-    tb = sum(l.energy_base for l in layers)
-    tp = sum(l.energy_prop for l in layers)
-    act = [l.activity_reduction for l in layers]
-    savings = [l.saving_total for l in layers]
-    return {
-        "overall_power_reduction": 1.0 - tp / tb,
-        "mean_activity_reduction": sum(act) / len(act),
-        "mean_zero_fraction": sum(l.zero_fraction for l in layers) / len(layers),
-        "per_layer_saving_min": min(savings),
-        "per_layer_saving_max": max(savings),
-        "n_layers": len(layers),
-    }
+    with spans.span("cnn.select"):
+        tb = sum(l.energy_base for l in layers)
+        tp = sum(l.energy_prop for l in layers)
+        act = [l.activity_reduction for l in layers]
+        savings = [l.saving_total for l in layers]
+        return {
+            "overall_power_reduction": 1.0 - tp / tb,
+            "mean_activity_reduction": sum(act) / len(act),
+            "mean_zero_fraction": (sum(l.zero_fraction for l in layers)
+                                   / len(layers)),
+            "per_layer_saving_min": min(savings),
+            "per_layer_saving_max": max(savings),
+            "n_layers": len(layers),
+        }

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bits
+from repro_torch.runtime import spans
 from repro_torch.trace import interpret
 
 
@@ -215,15 +216,17 @@ def _max_pool(x, k, s):
 def _im2col(x, kernel, stride):
     """Patches of NHWC ``x`` as the [M, K] matmul operand, K ordered
     (kh, kw, c) to match the HWIO weight reshape."""
-    n, h, w, c = x.shape
-    if kernel == 1:
-        return x[:, ::stride, ::stride, :].reshape(-1, c)
-    xp = _pad_hw(x, kernel, stride)
-    ho, wo = -(-h // stride), -(-w // stride)
-    taps = [xp[:, i:i + stride * (ho - 1) + 1:stride,
-               j:j + stride * (wo - 1) + 1:stride, :]
-            for i in range(kernel) for j in range(kernel)]
-    return torch.stack(taps, dim=3).reshape(n * ho * wo, kernel * kernel * c)
+    with spans.span("cnn.im2col"):
+        n, h, w, c = x.shape
+        if kernel == 1:
+            return x[:, ::stride, ::stride, :].reshape(-1, c)
+        xp = _pad_hw(x, kernel, stride)
+        ho, wo = -(-h // stride), -(-w // stride)
+        taps = [xp[:, i:i + stride * (ho - 1) + 1:stride,
+                   j:j + stride * (wo - 1) + 1:stride, :]
+                for i in range(kernel) for j in range(kernel)]
+        return torch.stack(taps, dim=3).reshape(n * ho * wo,
+                                                kernel * kernel * c)
 
 
 @dataclasses.dataclass
@@ -246,19 +249,21 @@ class _Tracer:
         self.traces: list[LayerTrace] = []
 
     def _record(self, name, kind, A, W):
-        self.traces.append(LayerTrace(
-            name=name, kind=kind,
-            A=bits.to_bf16(A), W=bits.to_bf16(W),
-            macs=float(A.shape[0]) * A.shape[1] * W.shape[1]))
+        with spans.span("cnn.record"):
+            self.traces.append(LayerTrace(
+                name=name, kind=kind,
+                A=bits.to_bf16(A), W=bits.to_bf16(W),
+                macs=float(A.shape[0]) * A.shape[1] * W.shape[1]))
 
     def conv(self, name, x, kernel, stride, relu=True):
         w = self.ws[name]
         if self.record:
             self._record(name, "conv", _im2col(x, kernel, stride),
                          w.reshape(-1, w.shape[-1]))
-        y = _conv(x, w, stride)
-        g, b = self.bn[name]
-        return _bn_relu(y, g, b, relu)
+        with spans.span("cnn.conv"):
+            y = _conv(x, w, stride)
+            g, b = self.bn[name]
+            return _bn_relu(y, g, b, relu)
 
     def dwconv(self, name, x, kernel, stride, relu=True):
         w = self.ws[name]
@@ -266,16 +271,17 @@ class _Tracer:
         if self.record:
             self._record(name, "dwconv", _im2col(x, kernel, stride),
                          w.reshape(kernel * kernel, c))
-        y = _conv(x, w, stride, groups=c)
-        g, b = self.bn[name]
-        return _bn_relu(y, g, b, relu)
+        with spans.span("cnn.conv"):
+            y = _conv(x, w, stride, groups=c)
+            g, b = self.bn[name]
+            return _bn_relu(y, g, b, relu)
 
     def fc(self, name, x):
         w = self.ws[name]
         if self.record:
             self._record(name, "fc", x, w)
         interpret.emit_matmul(x, w)
-        with interpret.seam():
+        with interpret.seam(), spans.span("cnn.conv"):
             return x @ w
 
 
@@ -340,7 +346,7 @@ def forward_with_traces(net: str, images: torch.Tensor, seed: int = 0,
       params: parameters, e.g. from :func:`params_from_numpy`.
     """
     tr = _Tracer(_params(net, images, seed, params))
-    with torch.no_grad(), _full_f32():
+    with torch.no_grad(), _full_f32(), spans.span("cnn.capture"):
         _FORWARDS[net](tr, images)
     if [t.name for t in tr.traces] != [s.name for s in NETS[net]()]:
         raise RuntimeError(f"{net} forward recorded the wrong layers")

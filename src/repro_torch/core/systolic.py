@@ -20,6 +20,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.runtime import spans
+
 from . import bic
 from . import precision as prec
 
@@ -72,8 +74,10 @@ def _host_sums(lanes: list[torch.Tensor]) -> list[torch.Tensor]:
     """Exact integer sums over the last dim, brought to the host in one
     copy and rounded once to float32 (the JAX package's float32 sums of
     the same integers are exact below 2**24, and so equal)."""
-    sums = torch.stack([v.sum(dim=-1, dtype=torch.int64) for v in lanes])
-    return list(sums.cpu().to(torch.float32))
+    with spans.span("sa.lane_sums"):
+        sums = torch.stack([v.sum(dim=-1, dtype=torch.int64)
+                            for v in lanes])
+        return list(sums.cpu().to(torch.float32))
 
 
 def menu_lane_sums(rows: dict, prefix: str,
@@ -108,7 +112,8 @@ def _edge_menu(bits: torch.Tensor, prefix: str,
     from repro_torch.kernels import power_counters as pc
 
     spec = pc.CounterSpec(bic_variants=bic_variants, zvg=with_zvg)
-    rows = pc.edge_counters(bits, spec, backend=backend)
+    with spans.span("sa.counters"):
+        rows = pc.edge_counters(bits, spec, backend=backend)
     menu = menu_lane_sums(rows, prefix, bic_variants, with_zvg)
     return menu, rows["rowzeros"]
 
@@ -229,12 +234,14 @@ def sa_design_report(A: torch.Tensor, Bm: torch.Tensor,
     if K != K2 or A.shape[:-2] != Bm.shape[:-2]:
         raise ValueError(
             f"shape mismatch {tuple(A.shape)} x {tuple(Bm.shape)}")
-    a_bits, b_bits = edge_streams(A, Bm, geom, precision)
+    with spans.span("sa.edge_streams"):
+        a_bits, b_bits = edge_streams(A, Bm, geom, precision)
     out, az_rows = _edge_menu(a_bits, "w", tuple(west_bic), west_zvg, backend)
     n_menu, nz_rows = _edge_menu(b_bits, "n", tuple(north_bic), north_zvg,
                                  backend)
     out.update(n_menu)
-    out.update(stream_facts(geom, M, K, N, az_rows, nz_rows))
+    with spans.span("sa.facts"):
+        out.update(stream_facts(geom, M, K, N, az_rows, nz_rows))
     return out
 
 

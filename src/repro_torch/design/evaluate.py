@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import power, systolic
 from repro_torch.core.systolic import seg_key
+from repro_torch.runtime import spans
 
 from .point import Coding, DesignPoint
 
@@ -85,6 +86,11 @@ def design_energy(report: dict, design: DesignPoint) -> dict:
     codings included (see :func:`menu_args`); a missing entry raises
     ``KeyError``.
     """
+    with spans.span("design.price"):
+        return _design_energy(report, design)
+
+
+def _design_energy(report: dict, design: DesignPoint) -> dict:
     em = design.priced_energy()
     cw, cn = design.west, design.north
     R, C = design.geometry.rows, design.geometry.cols

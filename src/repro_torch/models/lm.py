@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import monitor as pm_monitor
 from repro_torch.core import systolic
-from repro_torch.runtime import spmd
+from repro_torch.runtime import spans, spmd
 from repro_torch.trace import interpret
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -256,7 +256,7 @@ def logits_fn(weights: dict, cfg: ArchConfig, h: torch.Tensor,
     codes): the token head's matmul through :func:`.matmul.matmul`, the
     codes heads' einsum plain (as the JAX package's never takes the gated
     kernel)."""
-    with interpret.scope("lm_head"):
+    with interpret.scope("lm_head"), spans.span("model.head"):
         if cfg.inputs == "codes":
             out = interpret.einsum("...d,kdv->...kv", h, weights["head"])
         else:
@@ -282,7 +282,7 @@ def apply_model(weights: dict, cfg: ArchConfig, inputs, positions=None, *,
     passthrough by default; :func:`repro_torch.runtime.sharding.
     make_constrain` on a mesh) pins the residual stream where the JAX
     package pins it."""
-    with interpret.scope("embed"):
+    with interpret.scope("embed"), spans.span("model.embed"):
         x, positions = embed_inputs(weights.get("embed"), cfg, inputs,
                                     positions, compute_dtype(cfg))
     x = constrain(x)
@@ -290,7 +290,9 @@ def apply_model(weights: dict, cfg: ArchConfig, inputs, positions=None, *,
         weights["layers"], x, cfg, positions=positions, states=states,
         prefill=prefill, cache_len=cache_len, pages=pages, backend=backend,
         constrain=constrain)
-    return L.apply_norm(cfg.norm, weights["final_norm"], x), states, aux
+    with spans.span("model.norm"):
+        x = L.apply_norm(cfg.norm, weights["final_norm"], x)
+    return x, states, aux
 
 
 # ----------------------------------------------------------- step builders

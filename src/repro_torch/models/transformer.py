@@ -47,7 +47,9 @@ names come from :func:`repro_torch.trace.interpret.scope`, opened where
 the JAX models open a ``named_scope`` (the block, its mixer and FFN, each
 attention projection) and at each layer group of the stack (``scan[g]``,
 the JAX package's scan iteration); with no trace running they do
-nothing.
+nothing. Each block's norms, mixer and FFN are also host spans
+(:mod:`repro_torch.runtime.spans`: ``model.norm``, ``model.<mixer>``,
+``model.<ffn>``), free unless switched on or profiled.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ import torch
 
 from repro_torch.kernels.zvg_matmul import fused_paged_attention
 from repro_torch.kernels.zvg_matmul.ref import gather_pages
+from repro_torch.runtime import spans
 from repro_torch.runtime import spmd as S
 from repro_torch.trace import interpret
 
@@ -435,8 +438,9 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
     residual add to the sequence-parallel layout on a mesh."""
     mixer, ffn = parse_spec(spec)
     aux = torch.zeros((), device=x.device)
-    h = L.apply_norm(cfg.norm, p["norm1"], x)
-    with interpret.scope(mixer):
+    with spans.span("model.norm"):
+        h = L.apply_norm(cfg.norm, p["norm1"], x)
+    with interpret.scope(mixer), spans.span("model." + mixer):
         out, new_state = apply_mixer(
             p["mixer"], h, cfg, mixer, positions=positions, state=state,
             prefill=prefill, cache_len=cache_len, pages=pages,
@@ -444,8 +448,9 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
     x = constrain(x + L.weak(cfg.resid_mult, out.dtype) * out)
     if ffn == "none":
         return x, new_state, aux
-    h = L.apply_norm(cfg.norm, p["norm2"], x)
-    with interpret.scope(ffn):
+    with spans.span("model.norm"):
+        h = L.apply_norm(cfg.norm, p["norm2"], x)
+    with interpret.scope(ffn), spans.span("model." + ffn):
         if ffn == "moe":
             y, aux = M.apply_moe(p["ffn"], h, cfg.moe, cfg.act, backend)
         else:

@@ -5,10 +5,14 @@ and sampling (even requests greedy, odd ones temperature 0.8 with top-k
 20), pumps the engine until the queue drains, and prints one line per
 retired request -- its tokens, finish reason and its own BIC + ZVG power
 report -- then throughput, occupancy and the serve-wide power aggregate.
-Weights are random, drawn from ``--seed``.
+Weights are random, drawn from ``--seed``. ``--spans`` keeps the engine's
+and the model's host spans (:mod:`repro_torch.runtime.spans`) over the run
+and prints their count, total and self milliseconds by name after the
+stats line.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve            # on the card
       PYTHONPATH=src python -m repro_torch.serve --smoke --device cpu
+      PYTHONPATH=src python -m repro_torch.serve --spans   # where time goes
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import lm
+from repro_torch.runtime import spans
 from repro_torch.serve import SamplingParams, ServeConfig, ServeEngine
 
 
@@ -35,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--no-power", action="store_true",
                     help="skip per-request power accounting")
+    ap.add_argument("--spans", action="store_true",
+                    help="time the engine's and the model's spans and "
+                         "print them by name")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -59,11 +67,15 @@ def main(argv=None):
     print(f"arch={cfg.name}{' (reduced config)' if args.smoke else ''}, "
           f"slots={args.slots}, cache_len={args.cache_len}, "
           f"requests={args.requests}, device={args.device}")
+    if args.spans:
+        spans.enable()
     t0 = time.perf_counter()
     finished = engine.run()
     if engine.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    records = spans.take()
+    spans.disable()
 
     hdr = f"{'req':>4s} {'prompt':>6s} {'new':>4s} {'reason':8s} {'slot':>4s}"
     if not args.no_power:
@@ -84,6 +96,10 @@ def main(argv=None):
           f"{engine.occupancy():.2f}/{args.slots} slots)")
     print(f"{st['tokens']} tokens in {dt:.2f}s = {st['tokens'] / dt:.0f} "
           f"tok/s (includes the kernels' first-use build)")
+    if args.spans:
+        print(f"\nspans over the run ({st['admissions']} admissions, "
+              f"{st['prefill_rows']} prompt rows prefilled):")
+        print(spans.format_summary(spans.summary(records)))
     if not args.no_power:
         agg = engine.trace_report().summary()
         print(f"serve-wide (energy-weighted): "

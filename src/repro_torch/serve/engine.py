@@ -53,6 +53,17 @@ streams operands gathered to plain tensors (the monitored weights once at
 init), so K1 and K3 run on the card and its counters are bitwise the
 single-device engine's.
 
+Spans (:mod:`repro_torch.runtime.spans`, free unless switched on or
+profiled): ``serve.step`` around each step; per request ``serve.admit``
+(children ``serve.prefill``, ``serve.first_token``,
+``serve.account_prompt``) and ``serve.retire``; ``serve.decode`` around the
+shared decode (children ``serve.account_decode``, ``serve.forward``,
+``serve.sample``). ``stats`` counts ``admissions``, ``prefill_rows`` (prompt
+rows computed at admission) and ``prefix_hit_rows`` (rows a prefix hit took
+from the prefix cache); each :class:`Request` carries its host-clock stamps
+``t_submit``, ``t_admit`` and ``t_first`` (its admission's host work done:
+prefill, first token, prompt accounting).
+
 With ``ServeConfig.paging`` set, ``ServeEngine(...)`` returns a
 :class:`repro_torch.serve.paging.engine.PagedServeEngine`, which keeps
 this step loop and overrides the hooks ``_build_state``,
@@ -61,6 +72,7 @@ this step loop and overrides the hooks ``_build_state``,
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -68,7 +80,7 @@ import torch
 from repro_torch.core import monitor as pm_monitor
 from repro_torch.kernels.power_counters.ops import BACKENDS
 from repro_torch.models import lm
-from repro_torch.runtime import spmd
+from repro_torch.runtime import spans, spmd
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import parse_spec
 from repro_torch.runtime import sharding as rsh
@@ -202,8 +214,11 @@ class ServeEngine:
             [(site, gather_local(w)) for site, w in
              lm.pick_monitor_weights(self.params, cfg)]
             if scfg.power_monitor else [])
+        # admissions, prompt rows the model computed at admission, and
+        # rows a prefix hit took from the prefix cache instead
         self.stats = {"steps": 0, "decode_steps": 0, "tokens": 0,
-                      "occupancy_sum": 0, "peak_live": 0}
+                      "occupancy_sum": 0, "peak_live": 0, "admissions": 0,
+                      "prefill_rows": 0, "prefix_hit_rows": 0}
 
     def _mesh_step(self, fn):
         """``fn`` run in ``spmd.on_mesh``, its tensor outputs gathered to
@@ -241,6 +256,7 @@ class ServeEngine:
             req = Request(prompt=list(req), **kw)
         req = self.scheduler.submit(req)
         req.submit_step = self.stats["steps"]
+        req.t_submit = time.perf_counter_ns()
         return req
 
     # ---------------------------------------------------------------- step
@@ -248,19 +264,33 @@ class ServeEngine:
     def step(self) -> list[Request]:
         """One engine iteration: admit, one shared decode, retire.
         Returns the requests retired during this step."""
-        self._apply_design_swaps()
-        retired: list[Request] = []
-        self._admission_phase(retired)
-        live = self._decode_ready()
-        if live:
+        with spans.span("serve.step"):
+            self._apply_design_swaps()
+            retired: list[Request] = []
+            self._admission_phase(retired)
+            live = self._decode_ready()
+            if live:
+                self._decode_live(live, retired)
+            self.stats["steps"] += 1
+        return retired
+
+    def _decode_live(self, live: list[int], retired: list[Request]) -> None:
+        """The shared decode of the live rows: the accountant's sampled
+        work, the forward, sampling (the host waits for the card there),
+        and the retirements the new tokens cause."""
+        with spans.span("serve.decode"):
             inputs = self.cache.decode_inputs()
             if self.accountant is not None and self.accountant.tick(live):
-                x = self._embed(self._embed_bf16, inputs[0])[:, 0]
-                for site, w in self._power_weights:
-                    self.accountant.record_decode(live, x, w, site)
-                self.accountant.mark_sampled(live)
-            logits = self._decode(self.weights, self.cache.states, *inputs)
-            toks = self._sample(logits, self._temp, self._topk).tolist()
+                with spans.span("serve.account_decode"):
+                    x = self._embed(self._embed_bf16, inputs[0])[:, 0]
+                    for site, w in self._power_weights:
+                        self.accountant.record_decode(live, x, w, site)
+                    self.accountant.mark_sampled(live)
+            with spans.span("serve.forward"):
+                logits = self._decode(self.weights, self.cache.states,
+                                      *inputs)
+            with spans.span("serve.sample"):
+                toks = self._sample(logits, self._temp, self._topk).tolist()
             for slot in live:
                 req = self._running[slot]
                 self.cache.advance(slot, toks[slot])
@@ -270,8 +300,6 @@ class ServeEngine:
             self.stats["decode_steps"] += 1
             self.stats["occupancy_sum"] += len(live)
             self.stats["peak_live"] = max(self.stats["peak_live"], len(live))
-        self.stats["steps"] += 1
-        return retired
 
     def _apply_design_swaps(self) -> None:
         """Commit the design flips the online selector staged since the
@@ -334,21 +362,27 @@ class ServeEngine:
         return toks.to(self.device)
 
     def _admit(self, req: Request) -> None:
-        slot = self.cache.allocate()
-        req.slot = slot
-        req.status = RequestStatus.RUNNING
-        req.start_step = self.stats["steps"]
-        length = req.prompt_len
-        toks = self._padded_tokens(req.prompt)
-        logits, states1 = self._prefill(self.weights, toks, length)
-        first = self._sample_first(req, logits)
-        self.cache.write_prefill(slot, states1, first, length)
-        req.generated.append(first)
-        self.stats["tokens"] += 1
-        self._running[slot] = req
-        if self.accountant is not None:
-            self.accountant.begin(slot, req.uid, length)
-            self._record_prefill_power(slot, toks, 0, length)
+        with spans.span("serve.admit"):
+            req.t_admit = time.perf_counter_ns()
+            slot = self.cache.allocate()
+            req.slot = slot
+            req.status = RequestStatus.RUNNING
+            req.start_step = self.stats["steps"]
+            length = req.prompt_len
+            toks = self._padded_tokens(req.prompt)
+            with spans.span("serve.prefill"):
+                logits, states1 = self._prefill(self.weights, toks, length)
+            first = self._sample_first(req, logits)
+            self.cache.write_prefill(slot, states1, first, length)
+            req.generated.append(first)
+            self.stats["tokens"] += 1
+            self.stats["admissions"] += 1
+            self.stats["prefill_rows"] += length
+            self._running[slot] = req
+            if self.accountant is not None:
+                self.accountant.begin(slot, req.uid, length)
+                self._record_prefill_power(slot, toks, 0, length)
+            req.t_first = time.perf_counter_ns()
 
     def _sample_first(self, req: Request, logits) -> int:
         """Install the request's sampling parameters on its slot and draw
@@ -356,8 +390,9 @@ class ServeEngine:
         slot = req.slot
         self._temp[slot] = req.sampling.temperature
         self._topk[slot] = req.sampling.top_k
-        return int(self._sample(logits, self._temp[slot:slot + 1],
-                                self._topk[slot:slot + 1])[0])
+        with spans.span("serve.first_token"):
+            return int(self._sample(logits, self._temp[slot:slot + 1],
+                                    self._topk[slot:slot + 1])[0])
 
     def _record_prefill_power(self, slot: int, toks: torch.Tensor, lo: int,
                               length: int) -> None:
@@ -365,9 +400,10 @@ class ServeEngine:
         through the monitored sites. ``lo > 0`` is a prefix reuser, which
         pays only for the suffix it computed (the first payer keeps the
         shared pages' energy)."""
-        x = self._embed(self._embed_bf16, toks)[:, lo:length]
-        for site, w in self._power_weights:
-            self.accountant.record_prefill(slot, x, w, site)
+        with spans.span("serve.account_prompt"):
+            x = self._embed(self._embed_bf16, toks)[:, lo:length]
+            for site, w in self._power_weights:
+                self.accountant.record_prefill(slot, x, w, site)
 
     def _maybe_retire(self, req: Request, retired: list[Request]) -> None:
         reason = self.scheduler.retire_reason(
@@ -377,17 +413,18 @@ class ServeEngine:
 
     def _retire(self, req: Request, reason: str,
                 retired: list[Request]) -> None:
-        slot = req.slot
-        if self.accountant is not None:
-            req.power = self.accountant.finish(slot, len(req.generated))
-        self._release_slot(slot)
-        self._temp[slot] = 0.0
-        self._topk[slot] = 0
-        self._running.pop(slot)
-        req.status = RequestStatus.FINISHED
-        req.finish_reason = reason
-        req.finish_step = self.stats["steps"]
-        retired.append(req)
+        with spans.span("serve.retire"):
+            slot = req.slot
+            if self.accountant is not None:
+                req.power = self.accountant.finish(slot, len(req.generated))
+            self._release_slot(slot)
+            self._temp[slot] = 0.0
+            self._topk[slot] = 0
+            self._running.pop(slot)
+            req.status = RequestStatus.FINISHED
+            req.finish_reason = reason
+            req.finish_step = self.stats["steps"]
+            retired.append(req)
 
     def _release_slot(self, slot: int) -> None:
         self.cache.release(slot)

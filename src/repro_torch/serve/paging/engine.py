@@ -40,10 +40,12 @@ package does: no K4 there.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
 from repro_torch.models import lm
+from repro_torch.runtime import spans
 from repro_torch.models.transformer import parse_spec
 
 from ..engine import ServeEngine
@@ -118,6 +120,7 @@ class PagedServeEngine(ServeEngine):
                                           self.cache.n_live)
 
     def _try_admit(self, req: Request, retired: list[Request]) -> bool:
+        t_admit = time.perf_counter_ns()
         pcfg = self.scfg.paging
         ps = pcfg.page_size
         resume = bool(req.generated)
@@ -125,45 +128,58 @@ class PagedServeEngine(ServeEngine):
         # the decode input it was when it was preempted
         seq = (req.prompt + req.generated[:-1]) if resume else req.prompt
         length = len(seq)
-        shared: list[int] = []
-        if self.prefix is not None:
-            # keep >= 1 unshared token, whose logits give the first token
-            shared = self.prefix.match(seq, (length - 1) // ps)
-        start = len(shared) * ps
-        owned = self._acquire_pages(_ceil_div(length, ps) - len(shared),
-                                    req, admission=True)
-        if owned is None:
+        # an attempt that finds no pages ends here: serve.pages counts
+        # attempts, serve.admit admissions
+        with spans.span("serve.pages"):
+            shared: list[int] = []
+            if self.prefix is not None:
+                # keep >= 1 unshared token, whose logits give the first
+                # token
+                shared = self.prefix.match(seq, (length - 1) // ps)
+            start = len(shared) * ps
+            owned = self._acquire_pages(_ceil_div(length, ps) - len(shared),
+                                        req, admission=True)
+            if owned is None:
+                if shared:
+                    self.prefix.release(shared)
+                return False
+        req.t_admit = req.t_admit or t_admit
+        with spans.span("serve.admit"):
+            self.stats["admissions"] += 1
+            self.stats["prefill_rows"] += length - start
+            self.stats["prefix_hit_rows"] += start
+            row = self.cache.allocate()
+            req.slot = row
+            req.status = RequestStatus.RUNNING
+            req.start_step = self.stats["steps"]
+            self.cache.set_table(row, shared + owned, len(shared))
+            self._running[row] = req
             if shared:
-                self.prefix.release(shared)
-            return False
-        row = self.cache.allocate()
-        req.slot = row
-        req.status = RequestStatus.RUNNING
-        req.start_step = self.stats["steps"]
-        self.cache.set_table(row, shared + owned, len(shared))
-        self._running[row] = req
-        if shared:
-            self.stats["prefix_hit_requests"] += 1
-        toks = self._padded_tokens(seq)
-        if self.accountant is not None:
-            acc = self._suspended.pop(req.uid, None)
-            if acc is not None:
-                self.accountant.resume(row, acc)
+                self.stats["prefix_hit_requests"] += 1
+            toks = self._padded_tokens(seq)
+            if self.accountant is not None:
+                acc = self._suspended.pop(req.uid, None)
+                if acc is not None:
+                    self.accountant.resume(row, acc)
+                else:
+                    self.accountant.begin(row, req.uid, req.prompt_len)
+                # the whole computed extent in one call, however prefill
+                # is chunked: the counters are statistics of one
+                # contiguous stream
+                self._record_prefill_power(row, toks, start, length)
+            if start == 0 and (pcfg.prefill_chunk == 0
+                               or length <= pcfg.prefill_chunk):
+                # the slot engine's dense prefill, then its states copied
+                # into this row's pages
+                with spans.span("serve.prefill"):
+                    logits, states1 = self._prefill(self.weights, toks,
+                                                    length)
+                self.cache.scatter_prefill(row, states1,
+                                           _ceil_div(length, ps))
+                self._finish_prefill(row, logits, retired)
             else:
-                self.accountant.begin(row, req.uid, req.prompt_len)
-            # the whole computed extent in one call, however prefill is
-            # chunked: the counters are statistics of one contiguous stream
-            self._record_prefill_power(row, toks, start, length)
-        if start == 0 and (pcfg.prefill_chunk == 0
-                           or length <= pcfg.prefill_chunk):
-            # the slot engine's dense prefill, then its states copied into
-            # this row's pages
-            logits, states1 = self._prefill(self.weights, toks, length)
-            self.cache.scatter_prefill(row, states1, _ceil_div(length, ps))
-            self._finish_prefill(row, logits, retired)
-        else:
-            self._jobs[row] = _ChunkJob(seq, start)
-            self._pump_chunk(row, retired)
+                self._jobs[row] = _ChunkJob(seq, start)
+                self._pump_chunk(row, retired)
         return True
 
     def _pump_chunk(self, row: int, retired: list[Request]) -> None:
@@ -178,11 +194,13 @@ class PagedServeEngine(ServeEngine):
         poss = torch.full((1, width), -1, dtype=torch.int64)  # pads -> trash
         toks[0, :end - start] = torch.tensor(job.seq[start:end])
         poss[0, :end - start] = torch.arange(start, end)
-        logits = self._chunk(self.weights, self.cache.states,
-                             toks.to(self.device), poss.to(self.device),
-                             torch.from_numpy(self.cache.tables[row:row + 1])
-                             .to(self.device),
-                             length, start)
+        with spans.span("serve.chunk_prefill"):
+            logits = self._chunk(self.weights, self.cache.states,
+                                 toks.to(self.device), poss.to(self.device),
+                                 torch.from_numpy(
+                                     self.cache.tables[row:row + 1])
+                                 .to(self.device),
+                                 length, start)
         self.stats["chunk_calls"] += 1
         job.next = end
         if end >= length:
@@ -204,6 +222,7 @@ class PagedServeEngine(ServeEngine):
             self.stats["tokens"] += 1
             if self.prefix is not None:
                 self._insert_prefix(req, row)
+            req.t_first = time.perf_counter_ns()
         self._maybe_retire(req, retired)
 
     def _insert_prefix(self, req: Request, row: int) -> None:
@@ -276,20 +295,22 @@ class PagedServeEngine(ServeEngine):
         """Back every live row's next write position with a page before
         the shared decode; the highest-priority, earliest-admitted rows
         go first, so pressure lands on the rows preemption would pick."""
-        rows = sorted(self.cache.live_slots(),
-                      key=lambda r: (-self._prio(self._running[r]),
-                                     self._running[r].start_step))
-        for row in rows:
-            if not self.cache.live[row]:       # preempted by an earlier row
-                continue
-            if not self.cache.next_write_unbacked(row):
-                continue
-            got = self._acquire_pages(1, self._running[row], admission=False)
-            if got is None:
-                self._preempt(row)             # yields: the sole candidate
-            else:
-                self.cache.grow_table(row, got[0])
-        return self.cache.live_slots()
+        with spans.span("serve.pages"):
+            rows = sorted(self.cache.live_slots(),
+                          key=lambda r: (-self._prio(self._running[r]),
+                                         self._running[r].start_step))
+            for row in rows:
+                if not self.cache.live[row]:   # preempted by an earlier row
+                    continue
+                if not self.cache.next_write_unbacked(row):
+                    continue
+                got = self._acquire_pages(1, self._running[row],
+                                          admission=False)
+                if got is None:
+                    self._preempt(row)         # yields: the sole candidate
+                else:
+                    self.cache.grow_table(row, got[0])
+            return self.cache.live_slots()
 
     # ----------------------------------------------------------- lifecycle
     def _release_slot(self, slot: int) -> None:

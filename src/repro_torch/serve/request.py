@@ -45,6 +45,13 @@ class Request:
     preemptions: int = 0           # times evicted under page pressure and
                                    # re-queued (paged engine only)
     power: "object | None" = None  # RequestPowerReport when accounting is on
+    # host clock (time.perf_counter_ns) where the engine did the work:
+    # submitted; admission began and its host work ended (prefill, first
+    # token, prompt accounting), both of the first admission of a
+    # preempted request; 0 until then
+    t_submit: int = 0
+    t_admit: int = 0
+    t_first: int = 0
 
     @property
     def prompt_len(self) -> int:

@@ -211,7 +211,14 @@ def test_paged_engine_matches_jax(against_jax):
                 np.testing.assert_allclose(r.power.energy[d][c], v,
                                            rtol=1e-6,
                                            err_msg=f"{uid} {d}/{c}")
-    assert eng.stats == jeng.stats
+    # the JAX engine's counters, and the port's own: each admission's
+    # rows computed or taken from the prefix cache
+    assert {k: eng.stats[k] for k in jeng.stats} == jeng.stats
+    if not eng.stats["preemptions"]:
+        admitted = [r for r in done.values() if r.start_step >= 0]
+        assert eng.stats["admissions"] == len(admitted)
+        assert (eng.stats["prefill_rows"] + eng.stats["prefix_hit_rows"]
+                == sum(r.prompt_len for r in admitted))
     # each case exercises what it is named for
     want = {"chunked": "chunk_calls", "prefix": "prefix_hit_requests",
             "preemption": "preemptions", "priority": "preemptions",
