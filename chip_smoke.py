@@ -1903,6 +1903,49 @@ def check_product(got: torch.Tensor, plain: torch.Tensor, x, w,
     return float((got.float() - plain.float()).abs().max())
 
 
+def wide_route_cases() -> float:
+    """K2's wide route (bfloat16 on the tensor cores) against the plain
+    version over ``cases.WIDE_*``: MiniCPM3-4B's decode products at every
+    row count of ``WIDE_ROWS`` and the ragged shapes, each with every
+    plant (gated rows beside an inf weight, -0.0 and subnormal rows that
+    stay live, a row tile with every row gated), each row count forced
+    onto the route; gated rows +0.0 bit for bit, live rows within
+    ``WIDE_TOL``, two calls byte-identical. Returns the largest |kernel -
+    plain| over the finite entries."""
+    from repro_torch.kernels.zvg_matmul import cases, kernel, ref
+
+    shapes = [(M, K, N) for M in cases.WIDE_ROWS
+              for K, N in cases.WIDE_PRODUCTS] + list(cases.WIDE_RAGGED)
+    err, n = 0.0, 0
+    saved, kernel.WIDE_MIN_ROWS = kernel.WIDE_MIN_ROWS, 1
+    try:
+        for i, (M, K, N) in enumerate(shapes):
+            for plant in cases.WIDE_PLANTS:
+                x, w = cases.wide_case(M, K, N, plant, seed=i)
+                before = kernel.gated_row_matmul_cuda.wide_launches
+                got = kernel.gated_row_matmul_cuda(x, w)
+                again = kernel.gated_row_matmul_cuda(x, w)
+                torch.cuda.synchronize()
+                plain = ref.gated_row_matmul_ref(x, w)
+                ctx = f"K2 wide {M}x{K}x{N} {plant}"
+                if kernel.gated_row_matmul_cuda.wide_launches != before + 2:
+                    raise AssertionError(f"{ctx}: not on the wide route")
+                if not torch.equal(got.view(torch.int16),
+                                   again.view(torch.int16)):
+                    raise AssertionError(f"{ctx}: two calls differ")
+                try:
+                    err = max(err, cases.wide_error(got, plain, x, w))
+                except AssertionError as e:
+                    raise AssertionError(f"{ctx}: {e}") from None
+                n += 1
+    finally:
+        kernel.WIDE_MIN_ROWS = saved
+    log(f"gated_row_matmul's wide route vs plain on the card: {n} cases, "
+        f"gated rows +0.0, live rows within WIDE_TOL, two calls "
+        f"byte-identical (max |kernel - plain| {err!r})")
+    return err
+
+
 def phase_decode_kernel_cases() -> tuple[float, float]:
     """K2 and K3 against their plain versions on the card. Returns the
     largest |kernel - plain| of each."""
@@ -1929,6 +1972,7 @@ def phase_decode_kernel_cases() -> tuple[float, float]:
     log(f"gated_row_matmul vs plain on the card: {n2} cases, gated rows "
         f"bit-equal, products within tolerance (max |kernel - plain| "
         f"{err2!r})")
+    err2 = max(err2, wide_route_cases())
 
     menu = CounterSpec(zvg=True), CounterSpec(
         bic_variants=(bic.MANTISSA_ONLY,))

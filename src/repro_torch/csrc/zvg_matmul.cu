@@ -62,6 +62,43 @@
 //     once: no workspace, no atomics, and a result that does not change
 //     from run to run. Gated rows are written as zero.
 //
+// What bounds K2 at wide decode batches: at 128 rows (MiniCPM3-4B served
+// 128 at a time) the product is 128 FLOP a weight byte, still below the
+// 295 a byte of the bfloat16 tensor cores, so reading w once still bounds
+// it: 7.6 GB of weights a decode step, about 2.3 ms. The stream route
+// cannot come near: it takes 8 rows a pass, so 16 passes over w, and its
+// 0.98 TFLOP a step on the 67 TFLOP/s SIMT pipes alone is ~15 ms (it took
+// ~152 ms). So bfloat16 x bfloat16 calls (kernel.py::wide_route: rows TMA
+// can describe, and WIDE_MIN_ROWS or more, one, since this route took less
+// time than the stream route at every row count from 1 to 128) take a
+// second route, wide::stream_kernel, on the tensor cores; float32, int8,
+// mixed pairs and other strides keep the stream route:
+//   * One block per output tile of tile_m x tile_n (tile_m 64 or 128: one
+//     or two consumer warpgroups of wgmma.mma_async m64nNk16, bf16 in,
+//     float32 accumulators; tile_n 64 or 128). A ring of shared-memory
+//     stages of 64 k (x [tile_m, 64], K-major, and w [64, tile_n], which
+//     wgmma reads as B transposed) is fed by TMA from one producer warp,
+//     one mbarrier a stage; rows past M and k past K land as TMA's zeros.
+//     Each stage's sum is added into a second float32 accumulator, so no
+//     sum runs longer than one stage inside the tensor core. Where the
+//     tiles number fewer than the 132 SMs, K splits across a cluster of up
+//     to 16 blocks, which meet as the stream route's do (distributed
+//     shared memory, split order, one cluster barrier); where they number
+//     more (the lm head's 574), one block an SM walks them, so one tile's
+//     epilogue overlaps the next tile's loads.
+//   * The row gate, as the stream route's: while the tensor cores work on
+//     a stage, each consumer warp ORs the bits of its 16 rows of the x
+//     tile the stage holds, so no word of x is read twice; a cluster ORs
+//     its splits' words with the sums. A row with no nonzero word in all
+//     of K is written +0.0 whatever w holds (inf and NaN included); live
+//     rows are rounded once from float32. (A row tile with no live row
+//     still loads and multiplies w: its liveness is known only once all
+//     of x has arrived, and a test of x before the loads would read x
+//     twice and stall every call behind it; in a decode step the 128 rows
+//     are one row tile and hold the step's live requests.)
+//   * One launch a call, no memset and no padding copy; tensor maps are
+//     kept by pointer and shape, so a decode step's calls find theirs.
+//
 // K3, zm_fused_matmul_counters, replaces the TPU kernel
 //   src/repro/kernels/zvg_matmul/fused.py::fused_matmul_counters
 // The gated product of a[B, K] and w[K, N] as K2 computes it, and the
@@ -98,11 +135,13 @@
 #include <algorithm>
 #include <cstdint>
 #include <type_traits>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cooperative_groups.h>
 
+#include "hopper.cuh"
 #include "power_counters.cuh"
 
 namespace cg = cooperative_groups;
@@ -630,6 +669,253 @@ inline bool split_ok(int K, int kps) {
          (kps >= K || (kps % 8 == 0 && (K + kps - 1) / kps <= kMaxSplits));
 }
 
+// ---------------------------------------------------- K2's wide route
+// bf16 x bf16 on the tensor cores (see the note above). Its
+// kernel is named stream_kernel too, in a namespace of its own: the
+// profile's short name of every K2 launch, whichever route.
+namespace wide {
+
+using namespace hk;
+
+constexpr int kKS = 64;                  // k a stage: 128-byte rows of x
+constexpr int kSmemBudget = 200 * 1024;  // the ring and the splits' sums
+
+// Shapes of one instantiation: NWG consumer warpgroups (tile_m = 64 NWG),
+// tile_n = BN columns.
+template <int NWG, int BN>
+struct Shape {
+  static constexpr int kBM = 64 * NWG;
+  static constexpr int kABytes = kBM * kKS * 2;
+  static constexpr int kBBytes = kKS * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // the splits' float32 sums of a block's share of a tile's rows: splits
+  // x ceil(kBM / splits) rows, at most kBM + kMaxSplits - 1
+  static constexpr int kRecvBytes = (kBM + kMaxSplits) * BN * 4;
+  static constexpr int kStages =
+      std::min(8, (kSmemBudget - kRecvBytes) / kStageBytes);
+  static constexpr int kThreads = NWG * 128 + 32;   // + the producer warp
+  static constexpr int kAcc = BN / 2;               // floats a thread
+  static constexpr int kWords = kBM / 16;   // liveness words, 16 rows each
+  static constexpr int kSmem = 1024 + kStages * kStageBytes +
+                               2 * kStages * 8 + kMaxSplits * kWords * 4 +
+                               kRecvBytes;
+};
+
+// out[M, N] (bf16) = gated x[M, K] @ w[K, N], both bf16, through TMA maps
+// of x (boxes [tile_m, 64]) and w (boxes [64, 64]). Output tile t is rows
+// (t % m_tiles) tile_m and columns (t / m_tiles) BN on. Unsplit, block b
+// walks tiles b, b + gridDim.x, ... (persistent where the tiles outnumber
+// the blocks); split, each of the tiles blocks takes one tile, and the
+// cluster along z holds its splits of K, k_per_split rows each.
+template <int NWG, int BN>
+__global__ void __launch_bounds__(Shape<NWG, BN>::kThreads, 1)
+stream_kernel(const __grid_constant__ CUtensorMap map_x,
+              const __grid_constant__ CUtensorMap map_w,
+              bf16* __restrict__ out, int M, int K, int N, int k_per_split,
+              int m_tiles, int tiles) {
+  using S = Shape<NWG, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kStages *
+                                               S::kStageBytes);
+  uint64_t* empty = full + S::kStages;
+  // words[split][j]: bits 2 i and 2 i + 1 say whether row 16 j + i of the
+  // tile has a word whose bits are not all 0 in that split's k range
+  uint32_t* words = reinterpret_cast<uint32_t*>(empty + S::kStages);
+  // recv[split][share][BN]: the splits' sums of this block's share of the
+  // tile's rows
+  float* recv = reinterpret_cast<float*>(words + kMaxSplits * S::kWords);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = cluster.num_blocks();     // the cluster spans K
+  const int split = cluster.block_rank();
+  const int share = (S::kBM + splits - 1) / splits;   // rows a block sums
+  const int ks0 = split * k_per_split, ks1 = min(K, ks0 + k_per_split);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {   // the producer warp: the ring's TMA loads
+    if (lane == 0) {
+      prefetch_map(&map_x);
+      prefetch_map(&map_w);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t % m_tiles * S::kBM, n0 = t / m_tiles * BN;
+        for (int k0 = ks0; k0 < ks1; k0 += kKS) {
+          mbar_wait(&empty[s], phase ^ 1);
+          uint8_t* stage = smem + s * S::kStageBytes;
+          mbar_expect_tx(&full[s], S::kStageBytes);
+          tma_load(stage, &map_x, k0, m0, &full[s]);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(stage + S::kABytes + j * kKS * 128, &map_w, n0 + 64 * j,
+                     k0, &full[s]);
+          if (++s == S::kStages) { s = 0; phase ^= 1; }
+        }
+      }
+    }
+    __syncwarp();
+  } else {   // consumer warpgroups: rows 64 wg .. 64 wg + 63 of a tile
+    const int wg = warp / 4, w4 = warp % 4;
+    // the m64nBN accumulator layout: thread (warp w4, lane l) holds rows
+    // 16 w4 + l / 4 and + 8, columns 8 j + 2 (l % 4) and + 1
+    const int row0 = 16 * w4 + lane / 4, col0 = 2 * (lane % 4);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t % m_tiles * S::kBM, n0 = t / m_tiles * BN;
+      float acc[S::kAcc], tot[S::kAcc];
+#pragma unroll
+      for (int i = 0; i < S::kAcc; ++i) acc[i] = tot[i] = 0.0f;
+      uint32_t bits = 0;   // the words this lane tests, ORed
+      for (int k0 = ks0; k0 < ks1; k0 += kKS) {
+        mbar_wait(&full[s], phase);
+        const uint8_t* stage = smem + s * S::kStageBytes;
+        const uint32_t a_addr = smem_addr(stage) + wg * 64 * kKS * 2;
+        const uint32_t b_addr = smem_addr(stage) + S::kABytes;
+        fence_operands(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kKS / 16; ++kk) {
+          // A: K-major 128-byte rows, 8-row groups 1024 bytes apart, k16
+          // steps 32 bytes into the row. B: N-major, 64-column boxes of 64
+          // rows (8192 bytes) side by side, 8-row groups 1024 bytes apart,
+          // k16 steps 16 rows (2048 bytes) down.
+          const uint64_t da = make_desc(a_addr + kk * 32, 16, 16 * kKS, 1);
+          const uint64_t db = make_desc(b_addr + kk * 2048, kKS * 128, 1024,
+                                        1);
+          wgmma(acc, da, db, kk > 0);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the row gate while the tensor cores work: lanes 2 i and 2 i + 1
+        // test the two halves of row 16 w4 + i of the warpgroup's rows (a
+        // row is 128 bytes; the swizzle moves 16-byte pieces within it)
+        const uint4* half = reinterpret_cast<const uint4*>(
+            stage + (wg * 64 + 16 * w4 + lane / 2) * kKS * 2) + lane % 2 * 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint4 u = half[i];
+          bits |= u.x | u.y | u.z | u.w;
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operands(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int i = 0; i < S::kAcc; ++i) tot[i] += acc[i];
+        if (++s == S::kStages) { s = 0; phase ^= 1; }
+      }
+      bits |= __shfl_xor_sync(0xFFFFFFFFu, bits, 1);
+      // bit 2 i (and 2 i + 1): row 16 w4 + i has a nonzero word here
+      const uint32_t live = __ballot_sync(0xFFFFFFFFu, bits != 0);
+      if (splits == 1) {
+#pragma unroll
+        for (int i = 0; i < S::kAcc; i += 2) {
+          const int r = row0 + ((i & 2) ? 8 : 0);
+          const int m = m0 + wg * 64 + r, n = n0 + col0 + 8 * (i / 4);
+          if (m < M && n < N) {   // N even: n + 1 < N too
+            const bool on = live >> (2 * (r - 16 * w4)) & 1;
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + static_cast<size_t>(m) * N + n) =
+                __floats2bfloat162_rn(on ? tot[i] : 0.0f,
+                                      on ? tot[i + 1] : 0.0f);
+          }
+        }
+      } else {   // to the blocks that sum the rows: liveness and sums
+        if (lane < splits)
+          *cluster.map_shared_rank(&words[split * S::kWords + wg * 4 + w4],
+                                   lane) = live;
+#pragma unroll
+        for (int i = 0; i < S::kAcc; i += 2) {
+          const int r = wg * 64 + row0 + ((i & 2) ? 8 : 0);
+          const int c = col0 + 8 * (i / 4);
+          *cluster.map_shared_rank(
+              reinterpret_cast<float2*>(
+                  recv + (split * share + r % share) * BN + c),
+              r / share) = make_float2(tot[i], tot[i + 1]);
+        }
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // this block's share of the tile's rows: the splits' sums in split
+  // order, rounded once, or the +0.0 of a row no split found live
+  cluster.sync();   // every split's sums and liveness are in
+  const int m0 = blockIdx.x % m_tiles * S::kBM;
+  const int n0 = blockIdx.x / m_tiles * BN;
+  const int r0 = split * share, rn = min(S::kBM, r0 + share) - r0;
+  for (int i = threadIdx.x; i < rn * BN; i += S::kThreads) {
+    const int rl = i / BN, c = i % BN, r = r0 + rl;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    uint32_t word = 0;
+    for (int q = 0; q < splits; ++q) word |= words[q * S::kWords + r / 16];
+    float sum = 0.0f;
+    if (word >> (2 * (r % 16)) & 1) {
+      sum = recv[rl * BN + c];
+      for (int q = 1; q < splits; ++q) sum += recv[(q * share + rl) * BN + c];
+    }
+    out[static_cast<size_t>(m) * N + n] = __float2bfloat16_rn(sum);
+  }
+}
+
+template <int NWG, int BN>
+cudaError_t launch(const void* x, const void* w, void* out, int M, int K,
+                   int N, int kps, int workers, cudaStream_t stream) {
+  using S = Shape<NWG, BN>;
+  const auto kernel = stream_kernel<NWG, BN>;
+  CUtensorMap map_x, map_w;
+  if (!cached_map(&map_x, x, M, K, S::kBM, kKS) ||
+      !cached_map(&map_w, w, K, N, kKS, kKS))
+    return cudaErrorInvalidValue;
+  static bool ready = false;   // its shared memory, clusters past 8
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int m_tiles = (M + S::kBM - 1) / S::kBM;
+  const int tiles = m_tiles * ((N + BN - 1) / BN);
+  const int splits = (K + kps - 1) / kps;
+  if (splits == 1) {   // a cluster of one: the plain launch is cheaper
+    kernel<<<std::min(workers, tiles), S::kThreads, S::kSmem, stream>>>(
+        map_x, map_w, static_cast<bf16*>(out), M, K, N, kps, m_tiles,
+        tiles);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, 1, splits);
+  cfg.blockDim = dim3(S::kThreads);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, map_x, map_w,
+                            static_cast<bf16*>(out), M, K, N, kps, m_tiles,
+                            tiles);
+}
+
+}  // namespace wide
+
 // ------------------------------------------------------------------ K3
 struct Streams {
   int32_t* wc;       // [B, n_rows_w, lanes_w]
@@ -733,6 +1019,54 @@ extern "C" int zm_gated_row_matmul(const void* x, int x_dtype, const void* w,
   cudaError_t err =
       gemm(x_dtype, w_dtype, x, w, out, M, K, N, std::min(k_per_split, K),
            static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// K2's wide route: out[M, N] = gated x[M, K] @ w[K, N], all bfloat16 and
+// contiguous, K and N multiples of 8, x and w 16-byte aligned (rows TMA
+// can describe). tile_m (64 or 128) and tile_n (64 or 128) are the output
+// tile; k_per_split (a multiple of 64) the k each of a cluster's splits
+// walks (at most 16 splits); workers the blocks of an unsplit grid, which
+// walk the tiles (wide_plan). The launch goes to stream on device, made
+// current for it where it is not. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int zm_gated_row_matmul_wide(const void* x, const void* w,
+                                        void* out, int M, int K, int N,
+                                        int tile_m, int tile_n,
+                                        int k_per_split, int workers,
+                                        int device, void* stream) {
+  int current = device;
+  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
+    if (cudaSetDevice(device) != cudaSuccess)
+      return static_cast<int>(cudaErrorInvalidDevice);
+    const int err = zm_gated_row_matmul_wide(x, w, out, M, K, N, tile_m,
+                                             tile_n, k_per_split, workers,
+                                             device, stream);
+    cudaSetDevice(current);
+    return err;
+  }
+  const int splits = k_per_split < 1 ? 0 : (K + k_per_split - 1) / k_per_split;
+  if (M < 1 || K < 1 || N < 1 || K % 8 || N % 8 ||
+      (tile_m != 64 && tile_m != 128) || (tile_n != 64 && tile_n != 128) ||
+      k_per_split < 1 || k_per_split % wide::kKS || splits > kMaxSplits ||
+      workers < 1 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (tile_m == 128)
+    err = tile_n == 128
+              ? wide::launch<2, 128>(x, w, out, M, K, N, k_per_split,
+                                     workers, st)
+              : wide::launch<2, 64>(x, w, out, M, K, N, k_per_split, workers,
+                                    st);
+  else
+    err = tile_n == 128
+              ? wide::launch<1, 128>(x, w, out, M, K, N, k_per_split,
+                                     workers, st)
+              : wide::launch<1, 64>(x, w, out, M, K, N, k_per_split, workers,
+                                    st);
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }

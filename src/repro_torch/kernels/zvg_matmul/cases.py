@@ -176,3 +176,99 @@ def tiled_error(got: torch.Tensor, want: torch.Tensor) -> float:
     diff = (got - want).abs().masked_fill(nan, 0.0).max()
     scale = want.abs().masked_fill(nan, 0.0).max()
     return float(diff / torch.clamp_min(scale, 1e-30))
+
+
+#: K2's wide route (bfloat16 x bfloat16 on the tensor cores) against the
+#: float32 product, per live entry: ``|got - f32| <= WIDE_TOL[0] * |f32| +
+#: WIDE_TOL[1] * (|x| @ |w|) + 2**-126`` (``chip_smoke.py``'s and the card
+#: tests' K2 rule in bfloat16). The first term is the output's one rounding
+#: to bfloat16 (half a unit in the last place is 2**-9 of the value); the
+#: second the order of the float32 sums: inside the tensor core over one
+#: 64-k stage, then stage by stage into a second accumulator, then the
+#: splits in split order, against cuBLAS's order in the float32 product;
+#: the last, results below the smallest normal float32. Gated rows (all
+#: words +0.0) are +0.0 bit for bit, whatever ``w`` holds.
+WIDE_TOL = (2.0 ** -8, 1e-5)
+
+#: ``(K, N)`` of MiniCPM3-4B's decode products: the query down-projection,
+#: the latent and rotary key projections, the output projection, the
+#: MLP's up and gate, its down, and the head
+WIDE_PRODUCTS = ((2560, 768), (2560, 256), (2560, 32), (2560, 2560),
+                 (2560, 6400), (6400, 2560), (2560, 73448))
+
+#: rows the wide route's cases take: one and two warpgroups' tiles, their
+#: edges, and two row tiles
+WIDE_ROWS = (9, 16, 63, 64, 65, 128, 129, 256)
+
+#: ``(M, K, N)`` beside the products: column tiles cut by N, K not a
+#: multiple of the 64-k stage, the fewest k rows, and a persistent walk
+#: of more tiles than SMs at 300 rows
+WIDE_RAGGED = ((100, 200, 72), (65, 1000, 136), (129, 4104, 520),
+               (16, 8, 8), (300, 136, 1032), (17, 6392, 33000))
+
+#: plants of :func:`wide_case`
+WIDE_PLANTS = (None, "gated_inf", "specials_inf", "dead_tile")
+
+
+def wide_case(M: int, K: int, N: int, plant, seed: int, device="cuda"):
+    """Bfloat16 operands ``x [M, K]`` (normal values) and ``w [K, N]``
+    (fan-in scaled), drawn on ``device`` from ``seed``, with ``plant``: ``"gated_inf"`` sets
+    every third row from row 1 to +0.0 and one weight of column ``N //
+    3`` to inf; ``"specials_inf"`` sets row 1 to -0.0, row 2 to the
+    smallest bfloat16 subnormal and row 3 to +0.0 (as many as M allows),
+    and the same inf; ``"dead_tile"`` sets every row of the last row tile
+    of :func:`.kernel.wide_plan` to +0.0 (all of x where there is one),
+    and the same inf."""
+    from .kernel import wide_plan
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device=device)
+         * K ** -0.5).to(torch.bfloat16)
+    if plant == "gated_inf":
+        x[1::3] = 0.0
+    elif plant == "specials_inf":
+        for r, v in zip(range(1, M), (-0.0, 2.0 ** -133, 0.0)):
+            x[r] = v
+    elif plant == "dead_tile":
+        tm = wide_plan(M, K, N).tile_m
+        x[(M - 1) // tm * tm:] = 0.0
+    elif plant is not None:
+        raise ValueError(f"unknown plant {plant!r}")
+    if plant is not None:
+        w[K // 2, N // 3] = float("inf")
+    return x, w
+
+
+def wide_error(got: torch.Tensor, plain: torch.Tensor, x: torch.Tensor,
+               w: torch.Tensor) -> float:
+    """Hold K2's output ``got`` and the plain version's ``plain`` to the
+    wide route's rule (:data:`WIDE_TOL`): gated rows +0.0 bit for bit in
+    both; a live row's entry that the float32 product makes inf or NaN
+    (a weight of inf) not finite in either, which a gated row would be;
+    every other live entry within the tolerance. Raises where one breaks
+    it; returns the largest |got - plain| over the finite entries."""
+    from .ref import row_is_live
+
+    live = row_is_live(x)
+    for name, out in (("kernel", got), ("plain version", plain)):
+        if (out[~live].view(torch.int16) != 0).any():
+            raise AssertionError(f"the {name}'s gated rows are not all "
+                                 f"+0.0")
+    f32 = x.float() @ w.float()
+    fin = torch.isfinite(f32) & live[:, None]
+    lost = ~torch.isfinite(f32) & live[:, None]
+    rel, acc = WIDE_TOL
+    bound = (rel * f32.abs() + acc * (x.float().abs() @ w.float().abs())
+             + 2.0 ** -126)
+    for name, out in (("kernel", got), ("plain version", plain)):
+        if torch.isfinite(out.float()[lost]).any():
+            raise AssertionError(f"the {name} is finite where a live row "
+                                 f"meets an inf weight")
+        excess = ((out.float() - f32).abs() - bound)[fin]
+        if excess.numel() and float(excess.max()) > 0:
+            raise AssertionError(f"the {name} is {float(excess.max())!r} "
+                                 f"outside the stated tolerance")
+    both = fin & torch.isfinite(got.float()) & torch.isfinite(plain.float())
+    diff = (got.float() - plain.float()).abs()[both]
+    return float(diff.max()) if diff.numel() else 0.0

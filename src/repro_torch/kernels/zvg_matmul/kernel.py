@@ -15,7 +15,9 @@ never fall back to the plain versions.
 
 The grids are planned here, in plain Python that the CPU tests reach:
 :func:`decode_plan` splits K2's K (and K3's product's) across blocks
-where its column tiles are too few to fill the card, K3's counter walk
+where its column tiles are too few to fill the card, :func:`wide_route`
+sends K2's bfloat16 calls to its tensor-core route and
+:func:`wide_plan` tiles and splits them, K3's counter walk
 takes :func:`repro_torch.kernels.power_counters.kernel.chunk_plan`'s
 chunks, :func:`paged_plan` splits K4's positions by the table width,
 :func:`tiled_plan` picks K7's output tile, k stage and split where its
@@ -54,9 +56,11 @@ def _functions():
     fused.argtypes = ([_P, _I, _P, _I, _P, _I, _I, _I, _I,
                        _P, _P, _I, _I] + _SPEC
                       + [_P, _P, _I, _I] + _SPEC + [_I, _I, _I, _P])
-    for fn in (gemm, fused):
+    wide = lib.zm_gated_row_matmul_wide
+    wide.argtypes = [_P, _P, _P] + [_I] * 8 + [_P]
+    for fn in (gemm, fused, wide):
         fn.restype = ctypes.c_int
-    return gemm, fused
+    return gemm, fused, wide
 
 
 @functools.cache
@@ -130,6 +134,81 @@ def decode_plan(K: int, N: int, w_itemsize: int) -> DecodePlan:
                   f"{DECODE_MAX_SPLITS}, each of {DECODE_MIN_K} rows or "
                   f"more)")
     return DecodePlan(cols, tiles, kps, splits, blocks, reason)
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """K2's wide route (bfloat16 on the tensor cores): output tiles of
+    ``tile_m`` x ``tile_n``, ``tiles`` of them, and K in stages of
+    :data:`WIDE_STAGE` cut into ``splits`` runs of ``k_per_split`` (split
+    ``s`` from ``s * k_per_split``), a cluster a tile. Unsplit, ``workers``
+    blocks walk the tiles (each tile ``t`` to block ``t % workers``);
+    split, one block a tile and split. ``reason`` says why the grid holds
+    fewer blocks than the card has SMs, where it does."""
+    tile_m: int
+    tile_n: int
+    tiles: int
+    k_per_split: int
+    splits: int
+    workers: int
+    blocks: int
+    reason: str | None
+
+
+#: K2's wide route: the fewest rows that take it (the crossover with the
+#: stream route, measured on an H100 over MiniCPM3-4B's decode products
+#: at 1 to 128 rows: the wide route took less device time at every one;
+#: PERF.md's K2 row), the k of a shared-memory stage and the most splits
+#: (a cluster's blocks)
+WIDE_MIN_ROWS = 1
+WIDE_STAGE = 64
+WIDE_MAX_SPLITS = 16
+
+
+def wide_route(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether K2 runs ``x [M, K] @ w [K, N]`` on its wide route: both
+    bfloat16, at least :data:`WIDE_MIN_ROWS` rows, and rows the tensor
+    memory accelerator can describe (K and N multiples of 8, both bases
+    16-byte aligned). Every other call takes ``stream_kernel``'s route."""
+    return (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+            and x.shape[0] >= WIDE_MIN_ROWS and x.shape[1] % 8 == 0
+            and w.shape[1] % 8 == 0 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(M: int, K: int, N: int) -> WidePlan:
+    """The wide route's grid: 64-row tiles up to 64 rows, else 128 (one or
+    two consumer warpgroups); 128-column tiles where they number at least
+    an eighth of the :data:`SMS` (so that 8 splits or fewer fill the card,
+    and half as many blocks read x again), else 64. Where the output tiles
+    number fewer than the SMs, K splits into the largest power of two of
+    runs (at most :data:`WIDE_MAX_SPLITS`, a cluster) that keeps every
+    block on an SM of its own, rounded to whole stages: a second wave would
+    double the time, and clusters of 3 or 6 blocks packed onto an H100's
+    SMs in two waves where 2, 4 or 8 did not (PERF.md's K2 row). Where the
+    tiles number more than the SMs, one block an SM walks them."""
+    tile_m = 64 if M <= 64 else 128
+    m_tiles = -(-M // tile_m)
+    tile_n = 128 if m_tiles * -(-N // 128) * 8 >= SMS else 64
+    tiles = m_tiles * -(-N // tile_n)
+    stages = -(-K // WIDE_STAGE)
+    splits = 1
+    while (2 * splits <= min(WIDE_MAX_SPLITS, stages)
+           and 2 * splits * tiles <= SMS):
+        splits *= 2
+    per = -(-stages // splits)
+    splits = -(-stages // per)
+    workers = min(tiles, SMS) if splits == 1 else tiles
+    blocks = workers * splits
+    reason = None
+    if blocks < SMS:
+        reason = (f"{tiles} output tiles of {tile_m} x {tile_n}, and K = {K} "
+                  f"holds {stages} stages of {WIDE_STAGE}: {splits} splits "
+                  f"of {per} (a power of two at most {WIDE_MAX_SPLITS}, a "
+                  f"cluster; twice as many would pass the {SMS} SMs)")
+    return WidePlan(tile_m, tile_n, tiles, per * WIDE_STAGE, splits, workers,
+                    blocks, reason)
 
 
 @dataclass(frozen=True)
@@ -268,7 +347,9 @@ def gated_row_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """ZVG-gated ``x [M, K] @ w [K, N]`` on the card (float32, bfloat16
     or int8 operands, any K); matches :func:`.ref.gated_row_matmul_ref`:
     gated rows bit for bit, live rows up to the order of the float32 sums
-    (int8 with int8 exactly)."""
+    (int8 with int8 exactly). One launch a call: bfloat16 pairs that
+    :func:`wide_route` takes run on the tensor cores (:func:`wide_plan`),
+    the rest on ``stream_kernel``'s SIMT route (:func:`decode_plan`)."""
     out_dtype = check_operands(x, w, GEMM_DTYPES)
     _check_on_card("gated_row_matmul_cuda", x, w)
     (M, K), N = x.shape, w.shape[1]
@@ -277,17 +358,25 @@ def gated_row_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if K == 0:
         return out.zero_()
-    plan = decode_plan(K, N, w.element_size())
-    gemm, _ = _functions()
-    with torch.cuda.device(x.device):
-        err = gemm(x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
-                   _DTYPE_CODE[w.dtype], out.data_ptr(),
-                   _DTYPE_CODE[out_dtype], M, K, N, plan.k_per_split,
-                   _stream(x.device))
+    gemm, _, wide = _functions()
+    route = wide_route(x, w)
+    if route:   # the entry makes x's device current where it is not
+        plan = wide_plan(M, K, N)
+        err = wide(x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N,
+                   plan.tile_m, plan.tile_n, plan.k_per_split, plan.workers,
+                   x.device.index, _stream(x.device))
+    else:
+        plan = decode_plan(K, N, w.element_size())
+        with torch.cuda.device(x.device):
+            err = gemm(x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
+                       _DTYPE_CODE[w.dtype], out.data_ptr(),
+                       _DTYPE_CODE[out_dtype], M, K, N, plan.k_per_split,
+                       _stream(x.device))
     if err:
         raise RuntimeError(f"gated_row_matmul kernel launch failed: CUDA "
                            f"error {err}")
     gated_row_matmul_cuda.launches += 1
+    gated_row_matmul_cuda.wide_launches += route
     return out
 
 
@@ -318,7 +407,7 @@ def fused_matmul_counters_cuda(a: torch.Tensor, w: torch.Tensor,
     wz, nz = zeros[:B * K].view(B, K), zeros[B * K:]
     split = decode_plan(K, N, w.element_size())
     walk = chunk_plan(K)
-    _, fused = _functions()
+    _, fused, _ = _functions()
     with torch.cuda.device(dev):
         err = fused(a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(),
                     _DTYPE_CODE[w.dtype], product.data_ptr(),
@@ -418,7 +507,10 @@ def zvg_matmul_cuda(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
 
 
 #: kernel launches so far; set them to 0 before a run to count that run's
+#: (K2's ``launches`` counts every call, ``wide_launches`` those that took
+#: the wide route)
 gated_row_matmul_cuda.launches = 0
+gated_row_matmul_cuda.wide_launches = 0
 fused_matmul_counters_cuda.launches = 0
 fused_paged_attention_cuda.launches = 0
 zvg_matmul_cuda.launches = 0

@@ -8,7 +8,9 @@ Integer counters must be bitwise equal; decode products (K2, K3) of the
 kernel and of the plain version lie within ``PRODUCT_TOL`` of the float32
 product (the rule ``chip_smoke.py`` states), and gated rows are
 bit-equal, over the decode shapes, 8 and 9 rows with gated rows among live
-ones, the lm head and all four dtype pairs; the paged decode attention
+ones, the lm head and all four dtype pairs; K2's wide route (bfloat16 on
+the tensor cores) holds to ``WIDE_TOL`` over the wide cases, gated rows
++0.0 beside inf weights; the paged decode attention
 (K4) lies within ``ATTN_TOL`` of
 its plain version, relative to the output's largest magnitude, over the
 case list ``chip_smoke.py`` holds it to (both from
@@ -50,9 +52,12 @@ from repro_torch.kernels.zvg_matmul import kernel as kz
 from repro_torch.kernels.zvg_matmul import ref as zref
 from repro_torch.kernels.zvg_matmul.cases import (ATTN_TOL, PAGED_CASES,
                                                   TILED_CASES, TILED_TOL,
+                                                  WIDE_PLANTS, WIDE_PRODUCTS,
+                                                  WIDE_RAGGED, WIDE_ROWS,
                                                   bf16_ulp_error, paged_case,
                                                   relative_error, tiled_case,
-                                                  tiled_error)
+                                                  tiled_error, wide_case,
+                                                  wide_error)
 from repro_torch.models.attention import decode_attention
 
 pytestmark = pytest.mark.cuda
@@ -300,6 +305,51 @@ def test_gated_row_matmul_at_the_rest_of_the_zoo(cuda, M, K, N, dtype):
     plain = zref.gated_row_matmul_ref(x, w)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (M, N)
+    _assert_product(got, plain, x, w)
+
+
+@pytest.mark.parametrize("M,K,N", [(M, K, N) for M in WIDE_ROWS
+                                   for K, N in WIDE_PRODUCTS]
+                         + list(WIDE_RAGGED), ids=str)
+def test_gated_row_matmul_wide_route_matches_plain(cuda, monkeypatch, M, K,
+                                                   N):
+    """K2's wide route (bfloat16 on the tensor cores), every row count
+    forced onto it, at MiniCPM3-4B's decode products and ragged shapes,
+    with each plant: gated rows +0.0 bit for bit whatever ``w`` holds
+    (inf included), -0.0 and subnormal rows live, a row tile with every
+    row gated; live rows within ``WIDE_TOL``; two calls byte-identical;
+    one launch a call, counted in ``launches`` and ``wide_launches``."""
+    monkeypatch.setattr(kz, "WIDE_MIN_ROWS", 1)
+    for plant in WIDE_PLANTS:
+        x, w = wide_case(M, K, N, plant, seed=M + K + N)
+        before = (kz.gated_row_matmul_cuda.launches,
+                  kz.gated_row_matmul_cuda.wide_launches)
+        got = kz.gated_row_matmul_cuda(x, w)
+        again = kz.gated_row_matmul_cuda(x, w)
+        assert (kz.gated_row_matmul_cuda.launches,
+                kz.gated_row_matmul_cuda.wide_launches) == (before[0] + 2,
+                                                            before[1] + 2)
+        plain = zref.gated_row_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+        assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+        wide_error(got, plain, x, w)
+
+
+@pytest.mark.parametrize("dtype,M", [
+    (torch.bfloat16, 128), (torch.bfloat16, 1), (torch.float32, 128)],
+    ids=str)
+def test_gated_row_matmul_routes_by_rows_and_dtype(cuda, dtype, M):
+    """The wrapper picks the route from what it sees: bfloat16 at the
+    crossover's rows or more on the tensor cores, the rest on
+    ``stream_kernel``'s route; both match the plain version."""
+    x, w = _decode_operands(M, 2560, 768, dtype, seed=M)
+    before = kz.gated_row_matmul_cuda.wide_launches
+    got = kz.gated_row_matmul_cuda(x, w)
+    wide = dtype == torch.bfloat16 and M >= kz.WIDE_MIN_ROWS
+    assert kz.gated_row_matmul_cuda.wide_launches == before + wide
+    plain = zref.gated_row_matmul_ref(x, w)
+    torch.cuda.synchronize()
     _assert_product(got, plain, x, w)
 
 

@@ -116,10 +116,12 @@ def test_profiled_spans_are_profiler_ranges(on):
 
 def test_launch_counts_read_the_wrappers(monkeypatch):
     monkeypatch.setattr(kz.gated_row_matmul_cuda, "launches", 5)
+    monkeypatch.setattr(kz.gated_row_matmul_cuda, "wide_launches", 3)
     monkeypatch.setattr(kz.fused_matmul_counters_cuda, "launches", 2)
     got = launch_counts()
-    assert sorted(got) == [f"k{i}" for i in range(1, 8)]
-    assert got["k2"] == 5 and got["k3"] == 2
+    assert sorted(got) == sorted([f"k{i}" for i in range(1, 8)]
+                                 + ["k2_wide"])
+    assert got["k2"] == 5 and got["k2_wide"] == 3 and got["k3"] == 2
 
 
 # --------------------------------------------------------------- engines

@@ -252,6 +252,143 @@ def test_decode_plan_leaves_the_lm_head_whole_and_splits_the_rest():
     assert long.splits * long.k_per_split >= K
 
 
+#: ``(K, N)`` of MiniCPM3-4B's decode products (as the wide route's card
+#: cases), and shapes cut by the tiles and the 64-k stage
+MINICPM3_PRODUCTS = [(2560, 768), (2560, 256), (2560, 32), (2560, 2560),
+                     (2560, 6400), (6400, 2560), (2560, 73448)]
+WIDE_RAGGED = [(100, 200, 72), (65, 1000, 136), (129, 4104, 520),
+               (16, 8, 8), (300, 136, 1032), (17, 6392, 33000),
+               (1000, 65536, 24)]
+
+
+def _route_operands(case):
+    """``(x, w)`` for a routing case: ``M`` rows of MiniCPM3's 2560 x 768
+    product unless the case changes a dtype, a width or an alignment."""
+    M = {"below": kernel.WIDE_MIN_ROWS - 1,
+         "at": kernel.WIDE_MIN_ROWS}.get(case, 128)
+    K, N = 2560, 768
+    xdt = wdt = torch.bfloat16
+    if case == "f32":
+        xdt = wdt = torch.float32
+    elif case == "int8":
+        xdt = wdt = torch.int8
+    elif case == "bf16-f32":
+        wdt = torch.float32
+    elif case == "f32-bf16":
+        xdt = torch.float32
+    elif case == "bf16-int8":
+        wdt = torch.int8
+    elif case == "k-ragged":
+        K = 2561
+    elif case == "n-ragged":
+        N = 770
+    x = torch.zeros(M, K, dtype=xdt)
+    w = torch.zeros(K, N, dtype=wdt)
+    if case == "x-unaligned":    # contiguous, 2 bytes past a 16-byte line
+        x = torch.zeros(M * K + 1, dtype=xdt)[1:].view(M, K)
+    elif case == "w-unaligned":
+        w = torch.zeros(K * N + 8, dtype=wdt)[4:4 + K * N].view(K, N)
+    return x, w
+
+
+@pytest.mark.parametrize("case,wide", [
+    ("at", True), ("wide", True), ("below", False), ("f32", False),
+    ("int8", False), ("bf16-f32", False), ("f32-bf16", False),
+    ("bf16-int8", False), ("k-ragged", False), ("n-ragged", False),
+    ("x-unaligned", False), ("w-unaligned", False)])
+def test_wide_route_takes_bf16_at_many_rows_where_tma_can_read(case, wide):
+    """bfloat16 x bfloat16 at and above the crossover takes K2's wide
+    route; float32, int8, mixed dtypes, rows TMA cannot describe (K or N
+    not a multiple of 8, a base off a 16-byte line) and fewer rows keep
+    the stream route."""
+    x, w = _route_operands(case)
+    if case.endswith("unaligned"):
+        assert min(x.data_ptr() % 16, w.data_ptr() % 16) == 0
+        assert max(x.data_ptr() % 16, w.data_ptr() % 16) != 0
+    assert kernel.wide_route(x, w) is wide
+
+
+def test_wide_route_crossover_lies_among_the_measured_rows():
+    """The crossover is one of the row counts both routes were timed at on
+    the card (PERF.md's K2 row)."""
+    assert kernel.WIDE_MIN_ROWS in (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("M,K,N", [(M, K, N) for M in (16, 64, 65, 128, 256)
+                                   for K, N in MINICPM3_PRODUCTS]
+                         + WIDE_RAGGED, ids=str)
+def test_wide_plan_covers_every_tile_and_k_once(M, K, N):
+    """Walking the grid as the kernel does -- block ``b`` takes tiles
+    ``b``, ``b + workers``, .. unsplit, tile ``b`` split -- every output
+    entry lies in exactly one tile and every tile goes to exactly one
+    block; every k row lies in exactly one split, each whole 64-k stages,
+    at most a cluster's 16; the grid is one wave (at most a block an
+    SM)."""
+    plan = kernel.wide_plan(M, K, N)
+    tm, tn = plan.tile_m, plan.tile_n
+    assert tm == (64 if M <= 64 else 128)
+    assert tn == (128 if -(-M // tm) * -(-N // 128) * 8 >= kernel.SMS
+                  else 64)
+    m_tiles, n_tiles = -(-M // tm), -(-N // tn)
+    assert plan.tiles == m_tiles * n_tiles
+    owner = np.zeros(plan.tiles, dtype=np.int64)
+    for b in range(plan.workers):
+        owner[b::plan.workers] += 1
+    assert (owner == 1).all()
+    rows = np.zeros(M, dtype=np.int64)
+    cols = np.zeros(N, dtype=np.int64)
+    for t in range(plan.tiles):   # tile t: row tile t % m_tiles, column
+        m, n = t % m_tiles, t // m_tiles      # tile t // m_tiles
+        if n == 0:
+            rows[m * tm:(m + 1) * tm] += 1
+        if m == 0:
+            cols[n * tn:(n + 1) * tn] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    kps = plan.k_per_split
+    assert kps % kernel.WIDE_STAGE == 0
+    assert 1 <= plan.splits <= kernel.WIDE_MAX_SPLITS
+    covered = np.zeros(plan.splits * kps, dtype=np.int64)
+    for s in range(plan.splits):
+        covered[s * kps:(s + 1) * kps] += 1
+    assert (covered[:K] == 1).all()
+    assert (plan.splits - 1) * kps < K       # no split past K
+    if plan.splits > 1:
+        assert plan.workers == plan.tiles
+    assert plan.blocks == plan.workers * plan.splits <= kernel.SMS
+
+
+@pytest.mark.parametrize("K,N", MINICPM3_PRODUCTS, ids=str)
+@pytest.mark.parametrize("M", [32, 128])
+def test_wide_plan_fills_the_card_at_minicpm3s_decode_products(M, K, N):
+    """At the decode cell's 128 rows and the paged cell's 32, each of
+    MiniCPM3's products fills the card (the head walks its tiles, one
+    block an SM) or the plan says why not: few output tiles, and K's 64-k
+    stages split at most 16 ways without a second wave."""
+    plan = kernel.wide_plan(M, K, N)
+    assert (plan.blocks >= kernel.SMS) == (plan.reason is None)
+    if plan.tiles >= kernel.SMS:
+        assert (plan.splits, plan.workers) == (1, kernel.SMS)
+    else:
+        assert plan.reason and str(plan.tiles) in plan.reason
+        # twice the splits would pass the SMs (a second wave), a cluster or
+        # K's stages; the splits are the power of two in whole stages
+        twice = 2 * 2 ** (plan.splits - 1).bit_length()
+        stages = -(-K // kernel.WIDE_STAGE)
+        assert (twice * plan.tiles > kernel.SMS
+                or twice > min(kernel.WIDE_MAX_SPLITS, stages))
+        assert plan.splits == -(-stages // -(-stages // (twice // 2)))
+
+
+def test_wide_plan_walks_the_head_and_splits_the_layers():
+    """At 128 rows the head's 574 tiles of 128 x 128 are walked by 132
+    blocks unsplit; every layer product splits K across a cluster."""
+    head = kernel.wide_plan(128, 2560, 73448)
+    assert (head.tiles, head.splits, head.workers) == (574, 1, kernel.SMS)
+    assert head.k_per_split >= 2560
+    for K, N in MINICPM3_PRODUCTS[:-1]:
+        assert kernel.wide_plan(128, K, N).splits > 1
+
+
 def test_fused_matmul_counters_plain_matches_jax_past_four_segments():
     """A spec of 6 unique segments (past the kernel's 4-segment
     instantiation) on both edges, with zvg and hist: the counters bitwise
