@@ -7,7 +7,7 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds every CUDA source of the port (one ``nvcc`` each, all at
-once: six libraries) and drives the port's main paths, each with the
+once: seven libraries) and drives the port's main paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 * the paper's CNN power measurement, ``analyze_network("resnet50")`` at
@@ -149,7 +149,11 @@ with CUDA events and the profiler (K1 over ResNet50's 108 and
 MobileNetV1's 56 launches by both, and at each launch of
 ``K1_PLAN_SHAPES``; K3 per call and per launch, beside K2 alone at K3's
 product shape; K4 per launch and per paged step beside gather + SDPA;
-K5 over the 54 weight streams and on the largest alone).
+K5 over the 54 weight streams and on the largest alone). The grouped
+expert product (K8) is held, through its entry point, to its plain route
+on one MoE layer of DeepSeek-V2-Lite's 128-row decode step (empty experts,
+a segment of two row tiles, gated rows) and timed there beside the plain
+route and ``torch._grouped_mm``.
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -189,6 +193,8 @@ K6_SOURCE = "src/repro_torch/csrc/bic_encode.cu"
 K6_REPLACES = "src/repro/kernels/bic_encode/kernel.py:73"
 K7_SOURCE = "src/repro_torch/csrc/zvg_tiled_matmul.cu"
 K7_REPLACES = "src/repro/kernels/zvg_matmul/kernel.py:70"
+K8_SOURCE = "src/repro_torch/csrc/expert_matmul.cu"
+K8_REPLACES = "src/repro/models/moe.py (the capacity route's expert einsums)"
 
 #: decode products of the kernels (K2, K3) and of their plain versions
 #: against the float32 product of the same operands, per output dtype:
@@ -229,6 +235,16 @@ PAGED_ROWS = 8
 PAGED_HI = (0, 5, 10, 15)           # the "hi" class (priority 1)
 PAGED_STOCHASTIC = (3, 7, 11, 14)   # temperature 0.8, top-k 5
 PAGED_SYSTEM = 64                   # shared system-prompt tokens
+
+#: K8's case: one MoE layer of DeepSeek-V2-Lite's 128-row decode step,
+#: each token's top-6 of 64 routed experts (d 2048, expert width 1408),
+#: the routing skewed so that expert 0 takes every token (a segment of two
+#: row tiles) and the last EXPERT_EMPTY experts none; EXPERT_LAYERS MoE
+#: layers a step
+EXPERT_TOKENS, EXPERT_TOP_K, EXPERTS = 128, 6, 64
+EXPERT_D, EXPERT_F = 2048, 1408
+EXPERT_EMPTY = 4
+EXPERT_LAYERS = 26
 
 
 #: the K1 launches whose plans are logged and times kept one by one,
@@ -855,6 +871,7 @@ def phase_zoo() -> dict:
     from repro_torch.kernels.power_counters import kernel as k1
     from repro_torch.kernels.zvg_matmul import kernel as kz
     from repro_torch.models import lm
+    from repro_torch.models.config import jax_form
     from repro_torch.trace import sweep as sw
     from repro_torch.trace.capture import TraceCapture
 
@@ -880,7 +897,9 @@ def phase_zoo() -> dict:
     for arch, layers in ZOO:
         t_arch = time.perf_counter()
         full = get_config(arch)
-        acfg = full.with_(n_layers=layers)
+        # the tracer's sites are the JAX package's: plain RoPE and the
+        # capacity route, where a config states YaRN or dropless routing
+        acfg = jax_form(full).with_(n_layers=layers)
         cut = ("none" if layers == full.n_layers else
                f"depth {layers} of {full.n_layers} layers")
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2015,6 +2034,150 @@ def phase_decode_kernel_cases() -> tuple[float, float]:
         f"the four counter outputs bitwise equal, products within "
         f"tolerance (max |kernel - plain| {err3!r})")
     return err2, err3
+
+
+# ------------------------------------------------- expert kernel (K8)
+def expert_case(gen: torch.Generator) -> dict:
+    """One MoE layer's routed pairs at the decode step (``EXPERT_*``):
+    rows sorted by expert with their offsets, two tokens' rows all +0.0
+    (gated), and bfloat16 fan-in-scaled expert weights."""
+    T, k, E, D, F = (EXPERT_TOKENS, EXPERT_TOP_K, EXPERTS, EXPERT_D,
+                     EXPERT_F)
+    others = torch.rand(T, E - 1 - EXPERT_EMPTY, generator=gen,
+                        device="cuda").argsort(-1)[:, :k - 1] + 1
+    picks = torch.cat([torch.zeros(T, 1, dtype=torch.long, device="cuda"),
+                       others], 1).reshape(-1)
+    order = torch.sort(picks, stable=True).indices
+    counts = torch.bincount(picks, minlength=E)
+    tokens = torch.randn(T, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    tokens[3] = 0
+    tokens[77] = 0
+    return {"x": tokens[order // k].contiguous(), "counts": counts,
+            "offsets": torch.cat([counts.new_zeros(1), counts.cumsum(0)]
+                                 ).to(torch.int32),
+            **{name: (torch.randn(E, K, N, generator=gen, device="cuda")
+                      * K ** -0.5).to(torch.bfloat16)
+               for name, K, N in (("w_gate", D, F), ("w_up", D, F),
+                                  ("w_down", F, D))}}
+
+
+def expert_bound_ms(c: dict) -> tuple[float, float]:
+    """The least time of the layer's two K8 launches (ms), by bytes (each
+    touched expert's three weights read once, the routed rows in and out
+    of both launches) and by FLOPs (2 x pairs x 3 x D x F)."""
+    P = c["x"].shape[0]
+    touched = int((c["counts"] > 0).sum())
+    nbytes = 2.0 * (3 * touched * EXPERT_D * EXPERT_F
+                    + 2 * P * (EXPERT_D + EXPERT_F))
+    flops = 2.0 * P * 3 * EXPERT_D * EXPERT_F
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_OPS_PER_S * 1e3
+
+
+def phase_expert_kernel() -> dict:
+    """K8 through its entry point (``backend="cuda"``) against the plain
+    route on one decode step's routed pairs (:func:`expert_case`): gate
+    and up, then down on the plain route's gated product, so both sides
+    take the same inputs. Gated rows +0.0 bit for bit; the gated product
+    within ``GLU_TOL`` of the plain route, down within ``WIDE_TOL`` of
+    each segment's float32 product (as the plain route must be too); two
+    calls byte-identical. Then timed by CUDA events: the layer's two
+    launches, the plain route and ``torch._grouped_mm`` (gate, up, SiLU
+    and product, down). The profiler is left out here: the later phases
+    take dozens of profiles, and one more ahead of them is one more
+    chance of CUPTI delivering none."""
+    from repro_torch.kernels.expert_matmul import expert_matmul, kernel
+    from repro_torch.kernels.expert_matmul.ref import expert_matmul_ref
+    from repro_torch.kernels.zvg_matmul.cases import WIDE_TOL
+    from repro_torch.kernels.zvg_matmul.ref import row_is_live
+    from repro_torch.models import layers as L
+
+    c = expert_case(torch.Generator(device="cuda").manual_seed(8))
+    x, off, T = c["x"], c["offsets"], EXPERT_TOKENS
+    counts = c["counts"].tolist()
+    if (max(counts) <= kernel.TILE_M
+            or counts[-EXPERT_EMPTY:] != [0] * EXPERT_EMPTY):
+        raise AssertionError(f"K8 case: segments {counts}")
+
+    def gated():
+        return expert_matmul(x, c["w_gate"], off, T, w_up=c["w_up"],
+                             act=L.silu, silu=True, backend="cuda")
+
+    plain_h = expert_matmul_ref(x, c["w_gate"], off, c["w_up"], L.silu)
+
+    def down():
+        return expert_matmul(plain_h, c["w_down"], off, T, backend="cuda")
+
+    kernel.expert_matmul_cuda.launches = 0
+    h, y = gated(), down()
+    torch.cuda.synchronize()
+    launches = kernel.expert_matmul_cuda.launches
+    if launches != 2:
+        raise AssertionError(f"K8: {launches} launches for one layer")
+    plain_y = expert_matmul_ref(plain_h, c["w_down"], off)
+    dead = ~row_is_live(x)
+    for name, out in (("gate/up", h), ("down", y)):
+        if not (out[dead].view(torch.int16) == 0).all():
+            raise AssertionError(f"K8 {name}: gated rows not +0.0")
+    tol0, tol1 = kernel.GLU_TOL
+    err = (h.float() - plain_h.float()).abs()
+    excess = err - (tol0 * plain_h.float().abs()
+                    + tol1 * plain_h.float().abs().max())
+    if float(excess.max()) > 0:
+        raise AssertionError(f"K8 gate/up: {float(excess.max())!r} outside "
+                             f"GLU_TOL")
+    f32 = torch.zeros(y.shape, device="cuda")
+    mag = torch.zeros_like(f32)
+    b = off.tolist()
+    for e in range(EXPERTS):
+        he = plain_h[b[e]:b[e + 1]].float()
+        f32[b[e]:b[e + 1]] = he @ c["w_down"][e].float()
+        mag[b[e]:b[e + 1]] = he.abs() @ c["w_down"][e].float().abs()
+    bound = WIDE_TOL[0] * f32.abs() + WIDE_TOL[1] * mag + 2.0 ** -126
+    for name, out in (("kernel", y), ("plain route", plain_y)):
+        over = float(((out.float() - f32).abs() - bound).max())
+        if over > 0:
+            raise AssertionError(f"K8 down: the {name} is {over!r} outside "
+                                 f"WIDE_TOL")
+    if not (torch.equal(gated().view(torch.int16), h.view(torch.int16))
+            and torch.equal(down().view(torch.int16), y.view(torch.int16))):
+        raise AssertionError("K8: two calls differ")
+    err_max = max(float(err.max()),
+                  float((y.float() - plain_y.float()).abs().max()))
+    log(f"expert_matmul vs plain on the card: one decode layer's routed "
+        f"pairs ({x.shape[0]} rows, segments {min(counts)}-{max(counts)} "
+        f"rows, {counts.count(0)} experts empty, 2 gated tokens), gated "
+        f"rows +0.0, gate/up within GLU_TOL, down within WIDE_TOL, two "
+        f"calls byte-identical (max |kernel - plain| {err_max!r})")
+
+    def layer():
+        return expert_matmul(gated(), c["w_down"], off, T, backend="cuda")
+
+    def plain_layer():
+        hh = expert_matmul_ref(x, c["w_gate"], off, c["w_up"], L.silu)
+        return expert_matmul_ref(hh, c["w_down"], off)
+
+    ends = off[1:]
+
+    def library_layer():
+        g = torch._grouped_mm(x, c["w_gate"], offs=ends)
+        u = torch._grouped_mm(x, c["w_up"], offs=ends)
+        return torch._grouped_mm(L.silu(g) * u, c["w_down"], offs=ends)
+
+    ms = time_ms(layer, 20)
+    plain_ms = time_ms(plain_layer, 2)
+    try:
+        library_ms = time_ms(library_layer, 20)
+    except (AttributeError, RuntimeError) as e:
+        log(f"torch._grouped_mm not timed: {e}")
+        library_ms = None
+    bytes_ms, ops_ms = expert_bound_ms(c)
+    return {"launches": launches, "max_abs_err": err_max,
+            "segments": {"min": min(counts), "max": max(counts),
+                         "empty": counts.count(0)},
+            "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
 
 
 # ---------------------------------------------------- serving main path
@@ -4063,6 +4226,7 @@ def main() -> int:
 
     err = phase_kernel_cases()
     err2, err3 = phase_decode_kernel_cases()
+    k8 = phase_expert_kernel()
     rel4, err4, fault4 = phase_paged_kernel_cases()
     err5, err6 = phase_stream_kernel_cases()
     rel7, err7 = phase_tiled_kernel_cases()
@@ -4330,6 +4494,28 @@ def main() -> int:
         "tiles": site_pass["tiles"],
         "shapes": {"sites": n_sites, "dtype": "bfloat16",
                    "blocks": [128, 128, 128]},
+    }, {
+        "name": "expert_matmul",
+        "route": "cuda",
+        "source": K8_SOURCE,
+        "replaces": K8_REPLACES,
+        "launches": k8["launches"],
+        "max_abs_err": k8["max_abs_err"],
+        "ms": k8["ms"],
+        "plain_ms": k8["plain_ms"],
+        **bound(k8),
+        "library_ms": k8["library_ms"],
+        "library": "torch._grouped_mm for gate, up and down, SiLU and the "
+                   "product between",
+        "ms_over": f"one MoE layer of a {EXPERT_TOKENS}-row decode step "
+                   f"(two launches: gate and up, then down), CUDA events "
+                   f"over 20 layers (plain_ms over 2, library_ms over 20); "
+                   f"a step holds {EXPERT_LAYERS} such layers",
+        "decode_step_ms": k8["ms"] * EXPERT_LAYERS,
+        "segments": k8["segments"],
+        "shapes": {"tokens": EXPERT_TOKENS, "top_k": EXPERT_TOP_K,
+                   "experts": EXPERTS, "d": EXPERT_D, "f": EXPERT_F,
+                   "dtype": "bfloat16"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

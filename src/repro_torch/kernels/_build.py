@@ -25,7 +25,7 @@ BUILD = PACKAGE.parents[1] / "build" / "kernels"
 
 #: every CUDA source of the port, by library name
 SOURCES = ("power_counters", "zvg_matmul", "paged_attention", "transitions",
-           "bic_encode", "zvg_tiled_matmul")
+           "bic_encode", "zvg_tiled_matmul", "expert_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -43,6 +43,7 @@ from repro_torch.launch import flops as F
 from repro_torch.launch import graph_analysis as G
 from repro_torch.launch.mesh import fake_world, make_production_mesh
 from repro_torch.models import lm
+from repro_torch.models.config import jax_form
 from repro_torch.optim import AdamW
 from repro_torch.runtime import sharding as sh
 from repro_torch.runtime import spmd
@@ -107,7 +108,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if os.path.exists(path) and not force:
         with open(path) as f:
             return json.load(f)
-    cfg = cfg or get_config(arch)
+    # the JAX package's model: a dropless route's data-dependent segments
+    # have no shapes under the fake mode, and the mesh cells are the JAX
+    # package's
+    cfg = jax_form(cfg or get_config(arch))
     shape = SHAPES[shape_name]
     ok, reason = applicable(cfg, shape)
     rec: dict = {"arch": arch, "shape": shape_name,

@@ -209,16 +209,19 @@ class MLAConfig:
 
 
 def mla_attention(q_nope, q_rope, k_nope, k_rope, value, *,
-                  causal: bool = True, block_k: int = 1024):
+                  causal: bool = True, block_k: int = 1024,
+                  scale: float | None = None):
     """MLA's parallel score path: per-head nope and rope parts of the
     queries and keys concatenated, the rope key ``[B, S, 1, Dr]`` shared
-    by every head, then :func:`chunked_attention` scaled by the
-    concatenated head dim. ``q_nope``/``k_nope [B, S, H, Dn]``,
-    ``q_rope [B, S, H, Dr]``, ``value [B, S, H, Dv]``."""
+    by every head, then :func:`chunked_attention` scaled by ``scale``
+    (by default the concatenated head dim's ``** -0.5``).
+    ``q_nope``/``k_nope [B, S, H, Dn]``, ``q_rope [B, S, H, Dr]``,
+    ``value [B, S, H, Dv]``."""
     h = q_nope.shape[2]
     k_rope = k_rope.expand(k_rope.shape[:2] + (h, k_rope.shape[-1]))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope], dim=-1)
-    scale = (q_nope.shape[-1] + q_rope.shape[-1]) ** -0.5
+    if scale is None:
+        scale = (q_nope.shape[-1] + q_rope.shape[-1]) ** -0.5
     return chunked_attention(q, k, value, causal=causal, scale=scale,
                              block_k=block_k)

@@ -7,6 +7,11 @@ Block specs are ``"<mixer>[+<ffn>]"`` strings:
   ``slstm``;
 * ffns: ``mlp`` | ``moe`` | ``none`` (no ``+<ffn>``).
 
+RoPE scaling (``rope_scaling``, a :class:`RopeScaling`; YaRN, as
+DeepSeek-V2 publishes it) and the accountant's monitored block
+(``monitor_block``) are the port's own fields: the JAX package has
+neither, and their defaults leave every configuration as it is there.
+
 A mixer that needs a sub-config (``mla``: :class:`MLAConfig`,
 ``rglru``: :class:`RGLRUConfig`, ``mlstm``/``slstm``:
 :class:`XLSTMConfig`, ``moe``: :class:`MoEConfig`) raises without it;
@@ -31,6 +36,30 @@ _NEEDS = {"mla": ("mla", "MLAConfig"), "rglru": ("rglru", "RGLRUConfig"),
 
 
 @dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN RoPE scaling (arXiv:2309.00071) under the keys of a published
+    ``rope_scaling`` (``type: "yarn"``): the rotary frequencies blended
+    between ``base ** (-2i / d)`` and that over ``factor`` by the linear
+    ramp between the correction dims of ``beta_fast`` and ``beta_slow`` at
+    ``original_max_position_embeddings`` positions, cos and sin scaled by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``, and MLA's
+    softmax scale multiplied by ``mscale(factor, mscale_all_dim) ** 2``
+    (:func:`repro_torch.models.layers.yarn_inv_freq`)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    type: str = "yarn"
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"rope_scaling type {self.type!r}: only "
+                             f"'yarn' is modelled")
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
@@ -49,6 +78,7 @@ class ArchConfig:
     qkv_bias: bool = False
     pos: str = "rope"              # rope | mrope | sinusoidal
     rope_theta: float = 10000.0
+    rope_scaling: RopeScaling | None = None    # None: plain RoPE
     mrope_sections: tuple[int, ...] = ()
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
@@ -73,6 +103,9 @@ class ArchConfig:
     scan_layers: bool = True
     attn_block_k: int = 1024
     compute_dtype: str = "bfloat16"
+    # the block whose weights the power accountant streams; -1: the JAX
+    # package's rule (lm.pick_monitor_weights)
+    monitor_block: int = -1
 
     @property
     def hd(self) -> int:
@@ -109,3 +142,30 @@ class ArchConfig:
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+#: the port's own fields, which the JAX package's ArchConfig (and, under
+#: ``moe``, its MoEConfig) lacks; their defaults are the JAX package's
+#: behaviour
+PORT_FIELDS = ("rope_scaling", "monitor_block")
+PORT_MOE_FIELDS = ("dropless",)
+
+
+def jax_fields(cfg: ArchConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port's own fields: what the
+    JAX package's config of the same name holds, field for field."""
+    d = dataclasses.asdict(cfg)
+    for k in PORT_FIELDS:
+        d.pop(k)
+    if d["moe"] is not None:
+        for k in PORT_MOE_FIELDS:
+            d["moe"].pop(k)
+    return d
+
+
+def jax_form(cfg: ArchConfig) -> ArchConfig:
+    """``cfg`` with the port's own fields at their defaults: the model the
+    JAX package runs under the same fields (plain RoPE, capacity routing,
+    the JAX rule's monitored block)."""
+    moe = cfg.moe and dataclasses.replace(cfg.moe, dropless=False)
+    return cfg.with_(rope_scaling=None, monitor_block=-1, moe=moe)

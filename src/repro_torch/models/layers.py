@@ -86,14 +86,69 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
                                          device=device) / head_dim))
 
 
+def yarn_get_mscale(scale: float = 1.0, mscale: float = 1.0) -> float:
+    """YaRN's attention temperature factor ``0.1 mscale ln(scale) + 1``
+    (1 for ``scale <= 1``)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_correction_range(beta_fast: float, beta_slow: float, dim: int,
+                          base: float, max_pos: int) -> tuple[int, int]:
+    """The rotary dims ``(low, high)`` between which YaRN ramps from the
+    original to the interpolated frequencies: the dims that turn
+    ``beta_fast`` and ``beta_slow`` times over ``max_pos`` positions,
+    floored and ceiled, within ``[0, dim - 1]``."""
+    def dim_of(rot):
+        return (dim * math.log(max_pos / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+    return (max(math.floor(dim_of(beta_fast)), 0),
+            min(math.ceil(dim_of(beta_slow)), dim - 1))
+
+
+def yarn_inv_freq(head_dim: int, theta: float, scaling,
+                  device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies ``[head_dim // 2]`` (float32) for a
+    :class:`repro_torch.models.config.RopeScaling`, in the published
+    float32 operations (``DeepseekV2YarnRotaryEmbedding``): ``freq_extra``
+    (the plain frequencies) below the correction range, ``freq_inter``
+    (over ``factor``) above it, blended by the linear ramp between."""
+    pows = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                  device=device) / head_dim)
+    freq_extra = 1.0 / pows
+    freq_inter = 1.0 / (scaling.factor * pows)
+    low, high = yarn_correction_range(
+        scaling.beta_fast, scaling.beta_slow, head_dim, theta,
+        scaling.original_max_position_embeddings)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    mask = 1.0 - ramp
+    return freq_inter * (1 - mask) + freq_extra * mask
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0, scaling=None) -> torch.Tensor:
     """Rotary embedding over the last dim of ``x [..., S, H, D]`` at
-    integer ``positions [..., S]`` (broadcast over H), in float32."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    integer ``positions [..., S]`` (broadcast over H), in float32.
+    ``scaling`` (a :class:`repro_torch.models.config.RopeScaling`, or
+    None for plain RoPE) takes YaRN's frequencies and scales cos and sin
+    by its ``mscale`` ratio."""
+    if scaling is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)
+    else:
+        freqs = yarn_inv_freq(x.shape[-1], theta, scaling, x.device)
     ang = positions[..., None].float() * freqs          # [..., S, D/2]
     cos = torch.cos(ang)[..., None, :]                  # [..., S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]
+    if scaling is not None:
+        m = (yarn_get_mscale(scaling.factor, scaling.mscale)
+             / yarn_get_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

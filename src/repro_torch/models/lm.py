@@ -273,12 +273,14 @@ def _id(a):
 
 def apply_model(weights: dict, cfg: ArchConfig, inputs, positions=None, *,
                 states=None, prefill=False, cache_len=0, pages=None,
-                backend=None, constrain=_id):
+                backend=None, expert_backend=None, constrain=_id):
     """Forward to the final hidden states: ``(h [B, S, D], states,
     aux)``, ``aux`` the MoE layers' load-balancing losses summed (a
     float32 zero for a dense model), as the JAX package's
     ``apply_model`` returns them. ``inputs`` is the model input (see the
-    module doc). Serving and tracing ignore ``aux``. ``constrain`` (a
+    module doc). Serving and tracing ignore ``aux``. ``expert_backend``
+    reaches a dropless MoE's routed products (None: ``backend``; see
+    :mod:`repro_torch.models.moe`). ``constrain`` (a
     passthrough by default; :func:`repro_torch.runtime.sharding.
     make_constrain` on a mesh) pins the residual stream where the JAX
     package pins it."""
@@ -289,7 +291,7 @@ def apply_model(weights: dict, cfg: ArchConfig, inputs, positions=None, *,
     x, states, aux = T.apply_stack(
         weights["layers"], x, cfg, positions=positions, states=states,
         prefill=prefill, cache_len=cache_len, pages=pages, backend=backend,
-        constrain=constrain)
+        expert_backend=expert_backend, constrain=constrain)
     with spans.span("model.norm"):
         x = L.apply_norm(cfg.norm, weights["final_norm"], x)
     return x, states, aux
@@ -361,7 +363,7 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int, constrain=_id):
 
 
 def make_slot_prefill_step(cfg: ArchConfig, cache_len: int,
-                           constrain=_id):
+                           constrain=_id, expert_backend: str | None = None):
     """``(weights, inputs [1, S...], length) -> (logits at position
     length-1, states)`` for a prompt right-padded to a bucket length ``S
     >= length``. Right padding is exact by causality for attention and
@@ -369,16 +371,21 @@ def make_slot_prefill_step(cfg: ArchConfig, cache_len: int,
     cache row is overwritten by a decode write before a later step's mask
     admits it. Recurrent mixers carry state through pad tokens and a
     ``local`` ring can evict real ones: the engine prefills those archs at
-    the prompt's exact length."""
+    the prompt's exact length. Matmuls take the plain path, and a
+    dropless MoE's routed products ``expert_backend`` (the engine's kernel
+    backend: K8 on the card)."""
     def slot_prefill_step(weights, inputs, length: int):
         h, states, _ = apply_model(weights, cfg, inputs, prefill=True,
-                                   cache_len=cache_len, constrain=constrain)
+                                   cache_len=cache_len,
+                                   expert_backend=expert_backend,
+                                   constrain=constrain)
         return logits_fn(weights, cfg, h[:, max(length - 1, 0)]), states
 
     return slot_prefill_step
 
 
-def make_chunk_prefill_step(cfg: ArchConfig, constrain=_id):
+def make_chunk_prefill_step(cfg: ArchConfig, constrain=_id,
+                            expert_backend: str | None = None):
     """``(weights, pools, tokens [1, C], positions [1, C], pages [1, MP],
     length, start) -> logits [1, V]``: one chunk of a paged prefill at
     the absolute positions ``start..`` (given on the host too, so no step
@@ -388,11 +395,14 @@ def make_chunk_prefill_step(cfg: ArchConfig, constrain=_id):
     -1: its writes go to the trash page and its queries are fully masked.
     The logits are taken at the absolute position ``length - 1`` and mean
     something only on the chunk that holds it (the last). Matmuls take
-    the plain path, as prefill's do."""
+    the plain path, as prefill's do, and a dropless MoE's routed products
+    ``expert_backend``."""
     def chunk_prefill_step(weights, states, tokens, positions, pages,
                            length: int, start: int):
         h, _, _ = apply_model(weights, cfg, tokens, positions,
-                              states=states, pages=pages, constrain=constrain)
+                              states=states, pages=pages,
+                              expert_backend=expert_backend,
+                              constrain=constrain)
         idx = min(max(length - 1 - start, 0), h.shape[1] - 1)
         return logits_fn(weights, cfg, h[:, idx])
 
@@ -440,8 +450,11 @@ def pick_monitor_weights(params: dict, cfg: ArchConfig
     (or of the unrolled head or tail when there are no pattern groups),
     the first of :data:`MONITOR_WEIGHTS` its mixer has (a 3-D weight
     flattened to ``[K, rest]``) as ``layer0/<name>``, then its FFN's
-    ``up`` projection as ``layer0/ffn_up`` when it has one."""
-    blk = params["layers"][len(cfg.head) if cfg.n_groups else 0]
+    ``up`` projection as ``layer0/ffn_up`` when it has one. A config's
+    ``monitor_block`` (0 or more) names the block instead."""
+    i = (cfg.monitor_block if cfg.monitor_block >= 0
+         else len(cfg.head) if cfg.n_groups else 0)
+    blk = params["layers"][i]
     out = []
     for name in MONITOR_WEIGHTS:
         if name in blk["mixer"]:

@@ -49,7 +49,10 @@ attention projection) and at each layer group of the stack (``scan[g]``,
 the JAX package's scan iteration); with no trace running they do
 nothing. Each block's norms, mixer and FFN are also host spans
 (:mod:`repro_torch.runtime.spans`: ``model.norm``, ``model.<mixer>``,
-``model.<ffn>``), free unless switched on or profiled.
+``model.<ffn>``; inside a dropless ``model.moe``, ``moe.route``,
+``moe.experts`` and ``moe.combine``), free unless switched on or profiled.
+MLA scales its softmax by :func:`mla_scale` and its RoPE by the config's
+``rope_scaling`` (YaRN) on all three paths.
 """
 from __future__ import annotations
 
@@ -150,8 +153,8 @@ def _decode_batch_pos(cfg: ArchConfig, positions: torch.Tensor):
 
 def _rope_qk(cfg: ArchConfig, q, k, positions):
     if cfg.pos == "rope":
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = L.apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     elif cfg.pos == "mrope":
         q = L.apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
         k = L.apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
@@ -303,6 +306,19 @@ def _ring_decode(q, kc, vc, slots, bpos, cfg: ArchConfig, scale):
 
 
 # --------------------------------------------------------------------- MLA
+def mla_scale(cfg: ArchConfig) -> float:
+    """MLA's softmax scale: ``(dn + dr) ** -0.5``, times YaRN's
+    ``mscale(factor, mscale_all_dim) ** 2`` where the config scales its
+    RoPE so (DeepSeek-V2's attention; 1.5896 at its factor 40 and 0.707)."""
+    mla = cfg.mla
+    scale = (mla.qk_nope_head_dim + mla.qk_rope_head_dim) ** -0.5
+    rs = cfg.rope_scaling
+    if rs is not None and rs.mscale_all_dim:
+        m = L.yarn_get_mscale(rs.factor, rs.mscale_all_dim)
+        scale = scale * m * m
+    return scale
+
+
 def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
               positions: torch.Tensor, state=None, prefill: bool = False,
               cache_len: int = 0, pages: torch.Tensor | None = None,
@@ -330,11 +346,13 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         q = ein("bsd,dhe->bshe", x, p["wq"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta,
+                          cfg.rope_scaling)
     ckv = L.rms_norm(mm.matmul(x, p["w_dkv"], backend),
                      p["kv_norm"]["scale"])
     kr = mm.matmul(x, p["w_kr"], backend)[:, :, None, :]
-    kr = L.apply_rope(kr, positions, cfg.rope_theta)
+    kr = L.apply_rope(kr, positions, cfg.rope_theta, cfg.rope_scaling)
+    scale = mla_scale(cfg)
 
     if state is not None:                       # ---- absorbed decode
         if pages is not None:                   # paged: pool-backed cache
@@ -362,7 +380,7 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
         q_eff = A._try_constrain(q_eff, (None, None, None, "model"))
         scores = (ein("bshr,btr->bhst", q_eff, ckv_c)
                   + ein("bshe,bte->bhst", q_rope, kr_c)).float()
-        scores = scores * ((dn + dr) ** -0.5)
+        scores = scores * scale
         scores = torch.where(mask, scores, A.NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         lat = ein("bhst,btr->bshr", probs, ckv_c)
@@ -372,7 +390,7 @@ def apply_mla(p: dict, x: torch.Tensor, cfg: ArchConfig, *,
     # ---- parallel: per-head keys and values expanded from the latent
     k_nope = ein("bsr,rhe->bshe", ckv, p["w_uk"])
     value = ein("bsr,rhe->bshe", ckv, p["w_uv"])
-    out = A.mla_attention(q_nope, q_rope, k_nope, kr, value,
+    out = A.mla_attention(q_nope, q_rope, k_nope, kr, value, scale=scale,
                           block_k=cfg.attn_block_k)
     out = mm.matmul(out.reshape(b, s, h * dv), p["wo"])
     if not prefill:
@@ -432,10 +450,13 @@ def _id(a):
 def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
                 positions: torch.Tensor, state=None, prefill: bool = False,
                 cache_len: int = 0, pages: torch.Tensor | None = None,
-                backend: str | None = None, constrain=_id):
+                backend: str | None = None,
+                expert_backend: str | None = None, constrain=_id):
     """One block: ``(x, state, aux)``, ``aux`` the MoE's load-balancing
-    loss (a float32 zero for a dense block). ``constrain`` pins each
-    residual add to the sequence-parallel layout on a mesh."""
+    loss (a float32 zero for a dense block). ``expert_backend`` reaches
+    a dropless MoE's routed products (:func:`repro_torch.models.moe.
+    apply_moe`). ``constrain`` pins each residual add to the
+    sequence-parallel layout on a mesh."""
     mixer, ffn = parse_spec(spec)
     aux = torch.zeros((), device=x.device)
     with spans.span("model.norm"):
@@ -452,7 +473,8 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, spec: str, *,
         h = L.apply_norm(cfg.norm, p["norm2"], x)
     with interpret.scope(ffn), spans.span("model." + ffn):
         if ffn == "moe":
-            y, aux = M.apply_moe(p["ffn"], h, cfg.moe, cfg.act, backend)
+            y, aux = M.apply_moe(p["ffn"], h, cfg.moe, cfg.act, backend,
+                                 expert_backend)
         else:
             y = L.apply_mlp(p["ffn"], h, cfg.act, backend)
     x = constrain(x + L.weak(cfg.resid_mult, y.dtype) * y)
@@ -464,7 +486,8 @@ def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
                 positions: torch.Tensor, states: list | None = None,
                 prefill: bool = False, cache_len: int = 0,
                 pages: torch.Tensor | None = None,
-                backend: str | None = None, constrain=_id):
+                backend: str | None = None,
+                expert_backend: str | None = None, constrain=_id):
     """Run every layer. Returns ``(x, states, aux)``: the per-layer states
     for decode and paged steps (updated in place) and prefill, else
     ``None``; and the blocks' load-balancing losses summed in layer
@@ -485,7 +508,8 @@ def apply_stack(layers: list, x: torch.Tensor, cfg: ArchConfig, *,
                 p, x, cfg, spec, positions=positions,
                 state=None if states is None else states[i],
                 prefill=prefill, cache_len=cache_len, pages=pages,
-                backend=backend, constrain=_id if body else constrain)
+                backend=backend, expert_backend=expert_backend,
+                constrain=_id if body else constrain)
         if i == n_head - 1 or (body and (i - n_head) % n_pat == n_pat - 1):
             x = constrain(x)
         aux_total = aux_total + aux

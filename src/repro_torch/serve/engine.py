@@ -188,10 +188,14 @@ class ServeEngine:
                                 if self.dtype == torch.bfloat16
                                 else self.params["embed"].to(torch.bfloat16))
         self._build_state()        # cache + scheduler (paged overrides)
-        self._prefill = self._mesh_step(
-            lm.make_slot_prefill_step(cfg, scfg.cache_len))
+        # prefill keeps its matmuls plain; a dropless MoE's routed
+        # products take the decode step's backend (K8 on the card)
+        self._compute_backend = rsh.decode_compute_backend(
+            mesh, scfg.kernel_backend)
+        self._prefill = self._mesh_step(lm.make_slot_prefill_step(
+            cfg, scfg.cache_len, expert_backend=self._compute_backend))
         self._decode = self._mesh_step(lm.make_decode_step(
-            cfg, rsh.decode_compute_backend(mesh, scfg.kernel_backend)))
+            cfg, self._compute_backend))
         self._embed = self._mesh_step(lm.make_embed_step(cfg))
         self._running: dict[int, Request] = {}
         self._temp = np.zeros(self._batch, np.float32)

@@ -78,7 +78,8 @@ class PagedServeEngine(ServeEngine):
 
     def __init__(self, params, cfg, scfg, mesh=None):
         super().__init__(params, cfg, scfg, mesh)
-        self._chunk = self._mesh_step(lm.make_chunk_prefill_step(cfg))
+        self._chunk = self._mesh_step(lm.make_chunk_prefill_step(
+            cfg, expert_backend=self._compute_backend))
         pcfg = scfg.paging
         self.prefix = (PrefixCache(pcfg.page_size)
                        if pcfg.prefix_cache else None)

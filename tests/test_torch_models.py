@@ -29,7 +29,7 @@ from repro.trace.report import build_report as jbuild_report
 from repro_torch.configs import ARCHS, SMOKES, get_config
 from repro_torch.core import monitor
 from repro_torch.models import convert, lm
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, jax_fields, jax_form
 from repro_torch.trace.capture import MatmulSite, TraceCapture
 from repro_torch.trace.report import TraceReport, build_report
 
@@ -67,9 +67,13 @@ def test_config_registry_matches_the_jax_package():
     assert len(ARCHS) == 10
     for table, jtable in ((ARCHS, JARCHS), (SMOKES, JSMOKES)):
         for name in jtable:
-            got = dataclasses.asdict(table[name])
+            got = jax_fields(table[name])
             want = dataclasses.asdict(jtable[name])
             assert got == want, name
+            # the port's own fields at the JAX package's behaviour, but
+            # for the published DeepSeek-V2-Lite (YaRN, dropless routing)
+            assert (table[name] == jax_form(table[name])) == (
+                table[name] is not ARCHS["deepseek-v2-lite-16b"]), name
     assert get_config(ARCH, smoke=True).n_layers == 2
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")

@@ -33,7 +33,8 @@ from repro.models.layers import is_param
 from repro_torch.configs import ARCHS, SMOKES, get_config
 from repro_torch.models import convert, lm
 from repro_torch.models import moe as M
-from repro_torch.models.config import ArchConfig, MoEConfig
+from repro_torch.models.config import (ArchConfig, MoEConfig, jax_fields,
+                                       jax_form)
 
 MOE = "phi3.5-moe-42b-a6.6b"
 NEW_ARCHS = ("granite-3-2b", "deepseek-67b", MOE)
@@ -202,8 +203,8 @@ def test_gelu_and_sigmoid_round_as_jax_on_every_bf16_word(name):
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_new_archs_equal_the_jax_registry(arch):
     for table, jtable in ((ARCHS, JARCHS), (SMOKES, JSMOKES)):
-        assert dataclasses.asdict(table[arch]) == dataclasses.asdict(
-            jtable[arch])
+        assert jax_fields(table[arch]) == dataclasses.asdict(jtable[arch])
+        assert table[arch] == jax_form(table[arch])
     assert get_config(arch) is ARCHS[arch]
 
 
@@ -215,12 +216,16 @@ ONCE_PENDING = ("deepseek-v2-lite-16b", "minicpm3-4b", "musicgen-medium",
 @pytest.mark.parametrize("arch", ONCE_PENDING)
 def test_pending_archs_name_the_roadmap(arch):
     """The six archs of ROADMAP queue 1 step 3 resolve now, CONFIG and
-    SMOKE equal field for field to the JAX package's."""
+    SMOKE equal field for field to the JAX package's (the port's own
+    fields aside: the published DeepSeek-V2-Lite's CONFIG scales its RoPE
+    by YaRN and routes dropless, which the JAX package does not model)."""
     for smoke, table, jtable in ((False, ARCHS, JARCHS),
                                  (True, SMOKES, JSMOKES)):
         got = get_config(arch, smoke=smoke)
         assert got is table[arch]
-        assert dataclasses.asdict(got) == dataclasses.asdict(jtable[arch])
+        assert jax_fields(got) == dataclasses.asdict(jtable[arch])
+        assert (got == jax_form(got)) == (
+            smoke or arch != "deepseek-v2-lite-16b")
 
 
 def test_moe_blocks_need_a_moe_config():

@@ -119,7 +119,7 @@ def test_launch_counts_read_the_wrappers(monkeypatch):
     monkeypatch.setattr(kz.gated_row_matmul_cuda, "wide_launches", 3)
     monkeypatch.setattr(kz.fused_matmul_counters_cuda, "launches", 2)
     got = launch_counts()
-    assert sorted(got) == sorted([f"k{i}" for i in range(1, 8)]
+    assert sorted(got) == sorted([f"k{i}" for i in range(1, 9)]
                                  + ["k2_wide"])
     assert got["k2"] == 5 and got["k2_wide"] == 3 and got["k3"] == 2
 
